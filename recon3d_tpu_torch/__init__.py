@@ -10,6 +10,7 @@ plain C shared library (``kernels/__init__.py``). Each kernel wrapper
 launches its kernel for a CUDA tensor and runs its plain PyTorch version
 for a CPU tensor; any other device raises.
 
-Ported so far: the stereo depth slice, rectified gray pair -> SGM (3/4
-directions) -> WLS refine -> colored point cloud.
+Ported so far: the stereo depth path, raw pair -> two-pass rectification
+warp -> SGM (3, 4 or 8 directions) -> WLS refine -> depth -> colored point
+cloud, and `depth.DepthPipeline` over a calibrated rig.
 """

@@ -44,6 +44,13 @@ class StereoMatcherConfig:
         kw.setdefault("p2_factor", 96)
         return cls(**kw)
 
+    @classmethod
+    def accurate(cls, **kw) -> "StereoMatcherConfig":
+        """The accuracy preset: 8-direction SGM with P2 = 128*w^2."""
+        kw.setdefault("mode", "sgm8")
+        kw.setdefault("p2_factor", 128)
+        return cls(**kw)
+
     def p1(self) -> int:
         return 8 * self.channels * self.block_size ** 2
 

@@ -1,10 +1,11 @@
-"""Carry the JAX package's state for the depth slice across to the port.
+"""Carry the JAX package's state for the depth path across to the port.
 
-The slice has no learned weights. Its state is the matcher and WLS
+The path has no learned weights. Its state is the matcher and WLS
 configuration (passed as ``dataclasses.asdict`` dicts of the JAX package's
-configs), the 4x4 reprojection matrix Q and, optionally, the pinhole
-intrinsics as a 3x3 K; all arrive as plain Python / numpy. The JAX
-backends map onto the port's: 'pallas' -> 'cuda', 'xla' -> 'torch'.
+configs), the 4x4 reprojection matrix Q, optionally the pinhole intrinsics
+as a 3x3 K, the stereo calibration (`stereo_params`) and the two-pass warp
+plans (`remap_plan`); all arrive as plain Python / numpy. The JAX backends
+map onto the port's: 'pallas' -> 'cuda', 'xla' -> 'torch'.
 """
 from __future__ import annotations
 
@@ -14,7 +15,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from recon3d_tpu_torch.calib.npz import StereoParams
 from recon3d_tpu_torch.config import StereoMatcherConfig, WLSConfig
+from recon3d_tpu_torch.ops.warp import RemapPlan
 from recon3d_tpu_torch.utils.types import CameraIntrinsics
 
 _BACKENDS = {"auto": "auto", "pallas": "cuda", "xla": "torch"}
@@ -50,3 +53,21 @@ def convert_state(matcher: dict, wls: dict, Q, intrinsics=None, device="cuda") -
         np.asarray(intrinsics, np.float32))
     return SliceState(matcher=matcher_config(matcher), wls=wls_config(wls),
                       Q=torch.as_tensor(Q, device=device), intrinsics=intr)
+
+
+def stereo_params(fields: dict) -> StereoParams:
+    """The port's StereoParams from ``dataclasses.asdict`` of the JAX one."""
+    return StereoParams(**{k: None if v is None else np.asarray(v) for k, v in fields.items()})
+
+
+_PLAN_ARRAYS = {"vy": np.float32, "hx": np.float32, "valid": bool, "v_coarse": np.int32,
+                "h_coarse": np.int32}
+_PLAN_INTS = ("v_resid_bound", "h_resid_bound", "v_coarse_bits", "h_coarse_bits")
+
+
+def remap_plan(fields: dict, device="cuda") -> RemapPlan:
+    """The port's RemapPlan from the JAX one's fields: its five arrays (as
+    numpy) and its four ints, with the arrays on `device`."""
+    arrays = {k: torch.as_tensor(np.array(fields[k], dt), device=device)
+              for k, dt in _PLAN_ARRAYS.items()}
+    return RemapPlan(**arrays, **{k: int(fields[k]) for k in _PLAN_INTS})

@@ -12,12 +12,15 @@
 // path reads v1 back and writes it again. The TPU fused the three stages to
 // keep the volume in VMEM; here they are three launches (cost, then the
 // forward and downward scans of sgm_scan.cuh), simple first. The cost stage
-// walks each row segment with one thread per disparity and a rolling box
-// sum over a ring of column sums in shared memory, so each output reads
-// 2r+1 plane samples per plane instead of (2r+1)^2.
+// walks each row segment with one thread per disparity and keeps the
+// window's 2r+1 column sums in a ring in shared memory, so each output reads
+// 2r+1 plane samples per plane instead of (2r+1)^2. The sums run in the
+// plain version's order (rows top to bottom, then columns left to right), so
+// the cost matches it bitwise on any f32 input, integer or not.
 //
-// Costs are at most 12800 and exact integers, so int16 holds them; the
-// scans widen them to f32 in registers.
+// The stored costs are truncated to integers of at most 12800, so int16
+// holds them and every path sum after them is exact; the scans widen them to
+// f32 in registers.
 #include "sgm_scan.cuh"
 
 namespace r3d {
@@ -66,22 +69,25 @@ __global__ void __launch_bounds__(256) cost_kernel(
     return s;
   };
 
-  // ring slot of image column c is (c - (x0 - r)) mod block_size
-  float box = 0.0f;
-  for (int t = 0; t < block_size; ++t) {
-    const float v = column(x0 - r + t);
-    ring[t * 256 + d] = v;
-    box += v;
-  }
+  // ring slot of image column c is (c - (x0 - r)) mod block_size; `first`
+  // is the slot of the window's first column x - r
+  for (int t = 0; t < block_size; ++t) ring[t * 256 + d] = column(x0 - r + t);
+  int first = 0;
   for (int i = 0; i < kCostTile; ++i) {
     const int x = x0 + i;
-    if (i > 0) {  // slide the window: add column x + r, drop column x - r - 1
-      const int slot = (i - 1) % block_size;
-      const float v = column(x + r);
-      box = box + v - ring[slot * 256 + d];
-      ring[slot * 256 + d] = v;
+    if (i > 0) {  // slide the window: column x + r takes the slot of column x - r - 1
+      ring[first * 256 + d] = column(x + r);
+      first = first + 1 == block_size ? 0 : first + 1;
     }
-    float c = box;
+    // the window's column sums added left to right, as the plain version's
+    // box does: on non-integer gray levels (a warped pair) a rolling
+    // add-and-subtract would round differently and move the truncated cost
+    int slot = first;
+    float c = ring[slot * 256 + d];
+    for (int t = 1; t < block_size; ++t) {
+      slot = slot + 1 == block_size ? 0 : slot + 1;
+      c += ring[slot * 256 + d];
+    }
     if (x < min_disp + d + r) c = kInvalidCost;
     if (x >= W) c = 0.0f;
     out[static_cast<long long>(i) * DP] = static_cast<int16_t>(c);

@@ -1,11 +1,14 @@
 """Kernel path of semi-global matching (twin of recon3d_tpu/depth/sgm_pallas.py).
 
-Three kernel wrappers carry the frame, each with its plain PyTorch version
-beside it and a launch counter:
+Kernel wrappers, each with its plain PyTorch version beside it and a launch
+counter:
 
   cost_fwd_down     K2  csrc/sgm_cost.cu       cost volume + L_fwd (+ L_down)
   bwd_accumulate    K3  csrc/sgm_bwd.cu        v3 = v1 + L_bwd, in place
+  diag_accumulate   K5  csrc/sgm_diag.cu       v3 += a diagonal pair (sgm8)
   vfinalize         K4  csrc/sgm_vfinalize.cu  S = v3 + L_up, WTA, LR check
+  fwd_scan          K14 csrc/sgm_scan.cu       v1 = L_fwd of a given cost
+  down_accumulate   K14 csrc/sgm_scan.cu       v1 += L_down, in place
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors. The padding conventions are sgm_pallas.py's
@@ -191,6 +194,100 @@ def bwd_accumulate(cost_u16: torch.Tensor, v1: torch.Tensor, p1: float,
 bwd_accumulate.launches = 0
 
 
+def fwd_scan_plain(cost_u16: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
+    """Plain version of K14's forward scan on any device."""
+    v1 = torch.empty(cost_u16.shape, dtype=torch.float32, device=cost_u16.device)
+    return _scan_plain(cost_u16, None, v1, 1, False, float(p1) * 2.0, float(p2) * 2.0)
+
+
+def fwd_scan(cost_u16: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
+    """K14: v1 = L_fwd (left-to-right path) of a padded cost volume, as a new
+    (HP, WP, DP) f32 volume. p1 / p2 in cv2 units."""
+    v1 = torch.empty(cost_u16.shape, dtype=torch.float32, device=cost_u16.device)
+    _check_volumes(cost_u16, v1)
+    if not kernels.use_kernel(cost_u16):
+        return fwd_scan_plain(cost_u16, p1, p2)
+    HP, WP, DP = cost_u16.shape
+    kernels.launch("r3d_fwd_scan", cost_u16.device, kernels.ptr(cost_u16), kernels.ptr(v1),
+                   HP, WP, DP, float(p1) * 2.0, float(p2) * 2.0)
+    fwd_scan.launches += 1
+    return v1
+
+
+fwd_scan.launches = 0
+
+
+def down_accumulate_plain(cost_u16: torch.Tensor, v: torch.Tensor, p1: float,
+                          p2: float) -> torch.Tensor:
+    """Plain version of K14's downward scan on any device (in place on v)."""
+    return _scan_plain(cost_u16, v, v, 0, False, float(p1) * 2.0, float(p2) * 2.0)
+
+
+def down_accumulate(cost_u16: torch.Tensor, v: torch.Tensor, p1: float,
+                    p2: float) -> torch.Tensor:
+    """K14: v += L_down (top-to-bottom path), written over v and returned."""
+    _check_volumes(cost_u16, v)
+    if not kernels.use_kernel(cost_u16, v):
+        return down_accumulate_plain(cost_u16, v, p1, p2)
+    HP, WP, DP = cost_u16.shape
+    kernels.launch("r3d_down_accumulate", cost_u16.device, kernels.ptr(cost_u16),
+                   kernels.ptr(v), HP, WP, DP, float(p1) * 2.0, float(p2) * 2.0)
+    down_accumulate.launches += 1
+    return v
+
+
+down_accumulate.launches = 0
+
+
+def _shift_cols(carry: torch.Tensor, direction: int) -> torch.Tensor:
+    """new[x] = old[x - direction] on a (W, D) carry, the entering column
+    zeroed (sgm_pallas._shift_cols): a vertical sweep becomes a diagonal one."""
+    out = torch.zeros_like(carry)
+    if direction > 0:
+        out[1:] = carry[:-1]
+    else:
+        out[:-1] = carry[1:]
+    return out
+
+
+def diag_accumulate_plain(cost_u16: torch.Tensor, v: torch.Tensor, p1: float, p2: float,
+                          vertical: str = "down") -> torch.Tensor:
+    """Plain version of K5 on any device (in place on v, like the kernel):
+    row by row with the two column-shifted carries of sgm_pallas's
+    _mk_diag_down_kernel, swept bottom to top for vertical="up"."""
+    p1x, p2x = float(p1) * 2.0, float(p2) * 2.0
+    HP = cost_u16.shape[0]
+    ca = torch.zeros(cost_u16.shape[1:], dtype=torch.float32, device=v.device)
+    cb = torch.zeros_like(ca)
+    for y in (range(HP - 1, -1, -1) if vertical == "up" else range(HP)):
+        c = cost_u16[y].to(torch.float32)
+        ca = _path_step(_shift_cols(ca, +1), c, p1x, p2x)
+        cb = _path_step(_shift_cols(cb, -1), c, p1x, p2x)
+        v[y] = v[y] + ca + cb
+    return v
+
+
+def diag_accumulate(cost_u16: torch.Tensor, v: torch.Tensor, p1: float, p2: float,
+                    vertical: str = "down") -> torch.Tensor:
+    """K5: v += both diagonal paths of one vertical direction ("down": from
+    (y-1, x-+1), "up": from (y+1, x-+1)), written over v and returned.
+    p1 / p2 in cv2 units."""
+    if vertical not in ("down", "up"):
+        raise ValueError(vertical)
+    _check_volumes(cost_u16, v)
+    if not kernels.use_kernel(cost_u16, v):
+        return diag_accumulate_plain(cost_u16, v, p1, p2, vertical)
+    HP, WP, DP = cost_u16.shape
+    kernels.launch("r3d_diag_accumulate", cost_u16.device, kernels.ptr(cost_u16),
+                   kernels.ptr(v), HP, WP, DP, float(p1) * 2.0, float(p2) * 2.0,
+                   int(vertical == "up"))
+    diag_accumulate.launches += 1
+    return v
+
+
+diag_accumulate.launches = 0
+
+
 def _finalize_plain(S: torch.Tensor, d_real: int, w_real: int, uniqueness_ratio: int,
                     disp12_max_diff: int, do_subpixel: bool):
     """WTA + subpixel + uniqueness + right-view WTA + LR check on a whole
@@ -289,15 +386,28 @@ vfinalize.launches = 0
 def aggregate_and_finalize(cost_u16: torch.Tensor, p1: float, p2: float, num_disparities: int,
                            uniqueness_ratio: int = 10, disp12_max_diff: int = 1,
                            do_subpixel: bool = True, w_real: int | None = None,
-                           v1: torch.Tensor | None = None,
-                           final_dir: str = "up") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backward path (K3) + last vertical path and finalize (K4) on a
-    padded cost volume; v1 from cost_fwd_down is consumed in place (it ends
-    holding S). final_dir "up" completes 4-direction mode (v1 holds L_fwd +
-    L_down), "down" 3-direction mode (v1 holds L_fwd)."""
+                           v1: torch.Tensor | None = None, final_dir: str = "up",
+                           with_diag: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Path aggregation + finalize on a padded cost volume
+    (sgm_pallas.aggregate_and_finalize): backward path (K3), the diagonal
+    pairs (K5, with_diag), then the last vertical path and finalize (K4).
+    v1 from cost_fwd_down is consumed in place (it ends holding S); without
+    it the forward (and, for "up", downward) paths run here (K14).
+    final_dir "up" completes 4-direction mode (v1 holds L_fwd + L_down),
+    "down" 3-direction mode (v1 holds L_fwd); with_diag (8-direction mode)
+    needs "up"."""
+    if final_dir not in ("up", "down"):
+        raise ValueError(final_dir)
+    if with_diag and final_dir != "up":
+        raise ValueError("8-direction mode ends with the upward path")
     if v1 is None:
-        raise ValueError("v1 from cost_fwd_down is required")
+        v1 = fwd_scan(cost_u16, p1, p2)
+        if final_dir == "up":
+            down_accumulate(cost_u16, v1, p1, p2)
     v3 = bwd_accumulate(cost_u16, v1, p1, p2)
+    if with_diag:
+        diag_accumulate(cost_u16, v3, p1, p2, "down")
+        diag_accumulate(cost_u16, v3, p1, p2, "up")
     return vfinalize(cost_u16, v3, p1, p2, num_disparities, uniqueness_ratio,
                      disp12_max_diff, do_subpixel, w_real, final_dir)
 
@@ -322,12 +432,11 @@ def sgm_disparity_cuda(
     """Kernel-path twin of sgm.sgm_disparity: gray pair -> (disparity f32
     incl. min_disparity, -1 on invalid pixels; valid bool).
 
-    num_directions 4 (cv2 HH4 directions) or 3 (SGBM_3WAY). Eight directions
-    need the diagonal kernel, which is not ported yet.
+    num_directions 4 (cv2 HH4 directions), 3 (SGBM_3WAY) or 8 (MODE_HH: adds
+    the four diagonals).
     """
-    if num_directions not in (3, 4):
-        raise NotImplementedError("8-direction SGM needs the diagonal-path kernel "
-                                  "(sgm_pallas._mk_diag_down_kernel), not ported yet")
+    if num_directions not in (3, 4, 8):
+        raise ValueError(f"num_directions must be 3, 4 or 8, got {num_directions}")
     if p1 is None:
         p1 = 8.0 * block_size * block_size
     if p2 is None:
@@ -339,7 +448,7 @@ def sgm_disparity_cuda(
                              num_directions >= 4)
     disp_raw, valid = aggregate_and_finalize(
         cost, p1, p2, num_disparities, uniqueness_ratio, disp12_max_diff, do_subpixel, W,
-        v1=v1, final_dir="up" if num_directions >= 4 else "down")
+        v1=v1, final_dir="up" if num_directions >= 4 else "down", with_diag=num_directions == 8)
     disp_raw = disp_raw[:H, :W]
     valid = valid[:H, :W]
     if min_disparity:

@@ -36,6 +36,10 @@ SIGNATURES = {
     "r3d_bwd_accumulate": [_P, _P, _I, _I, _I, _F, _F, _P],
     "r3d_vfinalize": [_P] * 7 + [_I] * 5 + [_F, _F] + [_I] * 4 + [_P],
     "r3d_tridiag": [_P] * 7 + [_I, _I, _I, _P],
+    "r3d_resample": [_P] * 5 + [_I] * 4 + [_P],
+    "r3d_diag_accumulate": [_P, _P, _I, _I, _I, _F, _F, _I, _P],
+    "r3d_fwd_scan": [_P, _P, _I, _I, _I, _F, _F, _P],
+    "r3d_down_accumulate": [_P, _P, _I, _I, _I, _F, _F, _P],
 }
 
 _lock = threading.Lock()

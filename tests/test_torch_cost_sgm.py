@@ -222,13 +222,6 @@ def test_speckle_filters_match():
     assert not ref[10:14, 10:14].any()
 
 
-def test_eight_directions_not_on_kernel_path():
-    gl, gr = _pair(16, 128)
-    with pytest.raises(NotImplementedError):
-        sgm_cuda.sgm_disparity_cuda(torch.tensor(gl), torch.tensor(gr), num_disparities=16,
-                                    num_directions=8)
-
-
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """Only CUDA (kernel) and CPU (plain version) tensors, and only padded
     int16 / f32 volumes, are accepted."""
