@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive recon3d_tpu_torch's depth paths on one NVIDIA H100 and hold every
-kernel on them to its plain PyTorch version.
+"""Drive recon3d_tpu_torch's depth and point-cloud paths on one NVIDIA H100
+and hold every kernel on them to its plain PyTorch version.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -21,6 +21,20 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               pair;
   standalone  aggregate_and_finalize without v1, whose forward and downward
               paths then run as the standalone scans (K14);
+  scan_post   the post-scan chain of pipeline/scanner.py:179-180 at its
+              defaults on SyntheticRGBDCamera(640, 480) frame 0:
+              pointcloud_from_rgbd -> PointCloudProcessing() (voxel 0.0025,
+              compact to 2^18, statistical 30 / 1.2, radius 16 / 0.01) ->
+              NormalEstimation() (grid path G = 128, C = 8: K7 + K8 fused,
+              then orient_normals_consistent(10, 100)); per-stage CUDA-event
+              ms, point counts, overflow, peak memory, the chain with K7 / K8
+              replaced by their plain versions, normals against the plane;
+  normals_1m  tools/bench_pointops.py's normals case: 1M uniform unit-cube
+              points, radius 0.02, G = 52, C = 16, through estimate_normals;
+  moments_1m  grid_pca_moments_cuda on the same cloud (K8's moments variant);
+  normals_10m 10M points, radius 0.008, G = 128, C = 16: the kernel path timed;
+  voxel_10m   tools/bench_pointops.py's voxel case: 10M points, voxel 0.05,
+              capacity 2^14 (plain torch, timed);
   kernels     each kernel against its plain version on its path's own
               inputs, its median CUDA-event time over 10 launches, the plain
               version's median over 3, the least time the card could take
@@ -38,6 +52,7 @@ exits nonzero before any result.
 """
 import dataclasses
 import faulthandler
+import inspect
 import json
 import statistics
 import subprocess
@@ -49,6 +64,12 @@ DEVICE = "cuda"  # the card; a rehearsal of the script on the CPU sets "cpu"
 H, W, D = 1080, 1920, 128
 FOCAL, BASELINE = 1050.0, 0.06
 KERNEL_RUNS, PLAIN_RUNS, FRAMES, WARMUP = 10, 3, 10, 2
+# the point-cloud phases: scanner.py:179-180's chain on a 640x480 frame and
+# tools/bench_pointops.py's cases (bench.py:698-729, 952-976)
+SCAN_W, SCAN_H, SCAN_RUNS = 640, 480, 5
+NORMALS_1M = dict(n=1_000_000, radius=0.02, grid_size=52, cell_capacity=16, runs=5)
+NORMALS_10M = dict(n=10_000_000, radius=0.008, grid_size=128, cell_capacity=16, runs=3)
+VOXEL_10M = dict(n=10_000_000, voxel_size=0.05, capacity=1 << 14, runs=3)
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 ops/s outside tensor cores
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
@@ -193,6 +214,68 @@ def bound_ms(nbytes, nops):
 
 
 
+def unit_cube_cloud(n, dev):
+    """tools/bench_pointops.py's cloud: n uniform unit-cube points from
+    np.random.RandomState(0), all valid."""
+    import numpy as np
+    import torch
+
+    from recon3d_tpu_torch.utils.types import PointCloud
+
+    pts = np.random.RandomState(0).rand(n, 3).astype(np.float32)
+    return PointCloud(points=torch.tensor(pts, device=dev),
+                      valid=torch.ones(n, dtype=torch.bool, device=dev))
+
+
+def plain_grid_normals(points, valid, radius, G, C):
+    """normals._grid_normals with K7 and K8 replaced by their plain
+    versions; returns (normals (N, 3), per-point neighbor count)."""
+    import torch
+
+    from recon3d_tpu_torch.ops import grid_knn, grid_knn_cuda
+
+    pk, slot, _ = grid_knn._bin_points_packed(points, valid, radius, G, C)
+    r = torch.tensor(radius, dtype=torch.float32)
+    chan, has = grid_knn_cuda.packed_chan_readback(
+        grid_knn.core_plain(pk, float(r * r), G, C, True), slot)
+    v = torch.stack([chan(0), chan(1), chan(2)], -1)
+    fallback = torch.tensor([0.0, 0.0, 1.0], device=points.device)
+    return torch.where(has[:, None], v, fallback), torch.where(has, chan(3), 0.0)
+
+
+def normals_agree(a, b, well, signed, what):
+    """The normals bars: |dot| (or the signed dot) median > 0.99999 and
+    > 0.999 on at least 99 % of the `well` points; returns the numbers."""
+    import torch
+
+    dots = (a[well] * b[well]).sum(-1)
+    if not signed:
+        dots = dots.abs()
+    out = {"points": int(well.sum()), "dot_median": float(dots.median()),
+           "share_above_0.999": float((dots > 0.999).float().mean()),
+           "bitwise": bool(torch.equal(a, b))}
+    check(out["points"] > 0 and out["share_above_0.999"] >= 0.99
+          and (signed or out["dot_median"] > 0.99999), f"{what}: normals differ: {out}")
+    return out
+
+
+def k8_operations(pk, counts, G, C, fused):
+    """The f32 operations K8 needs on this table: 9 for each candidate test
+    (3 subtractions, 3 products, 2 sums, 1 compare) an occupied query makes
+    against the occupied slots of its in-grid neighbor cells, 16 for each
+    in-radius candidate (10 sums, 6 products), and with `fused` ~220 for the
+    normalization and eigen-solve of each occupied slot."""
+    import torch
+
+    occ = pk[:, 3].reshape(G, G, G, C).sum(-1).double()
+    padded = torch.nn.functional.pad(occ, (1, 1, 1, 1, 1, 1))
+    nbr = sum(padded[1 + dx:1 + dx + G, 1 + dy:1 + dy + G, 1 + dz:1 + dz + G]
+              for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1))
+    tests = float((occ * nbr).sum())
+    occupied = float(occ.sum())
+    return 9 * tests + 16 * float(counts.double().sum()) + (220 * occupied if fused else 0.0)
+
+
 
 def plain_disparity(gl, gr, m, w, num_directions):
     """compute_disparity's kernel path built from the plain versions (on the
@@ -243,8 +326,14 @@ def main():
     from recon3d_tpu_torch.depth import DepthPipeline, sgm_cuda, wls_cuda
     from recon3d_tpu_torch.depth.matcher import compute_disparity, disparity_to_depth
     from recon3d_tpu_torch.depth.wls import _edge_weights, lambda_schedule
-    from recon3d_tpu_torch.ops import warp
-    from recon3d_tpu_torch.pointcloud.backproject import backproject_disparity
+    from recon3d_tpu_torch.camera.fake import SyntheticRGBDCamera
+    from recon3d_tpu_torch.normal_estimation import NormalEstimation
+    from recon3d_tpu_torch.ops import grid_knn, grid_knn_cuda, warp
+    from recon3d_tpu_torch.pointcloud import normals, outliers, voxel
+    from recon3d_tpu_torch.pointcloud.backproject import (backproject_disparity,
+                                                          pointcloud_from_rgbd)
+    from recon3d_tpu_torch.pointcloud_processing import PointCloudProcessing
+    from recon3d_tpu_torch.utils.types import CameraIntrinsics, compact
 
     dev = torch.device(DEVICE, 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -273,7 +362,8 @@ def main():
     wrappers = {"K1": warp.resample_pass, "K2": sgm_cuda.cost_fwd_down,
                 "K3": sgm_cuda.bwd_accumulate, "K4": sgm_cuda.vfinalize,
                 "K5": sgm_cuda.diag_accumulate, "K6": wls_cuda.tridiag_solve,
-                "K14 fwd": sgm_cuda.fwd_scan, "K14 down": sgm_cuda.down_accumulate}
+                "K14 fwd": sgm_cuda.fwd_scan, "K14 down": sgm_cuda.down_accumulate,
+                "K7": grid_knn_cuda.pack_cells, "K8": grid_knn_cuda.core_call}
 
     def counted(fn, expected):
         """Run a path once with every counter at 0 before it; its counts must
@@ -287,15 +377,15 @@ def main():
         check(counts == want, f"launches {counts}, expected {want}")
         return out, {k: n for k, n in counts.items() if n}
 
-    def timed_frames(frame):
-        """Host-clock ms of FRAMES frames after WARMUP, each ending in a
+    def timed_frames(frame, runs=FRAMES, warmup=WARMUP):
+        """Host-clock ms of `runs` frames after `warmup`, each ending in a
         synchronize, and the peak device memory of those frames."""
-        for _ in range(WARMUP):
+        for _ in range(warmup):
             frame()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         ms = []
-        for _ in range(FRAMES):
+        for _ in range(runs):
             t0 = time.perf_counter()
             frame()
             torch.cuda.synchronize()
@@ -530,6 +620,178 @@ def main():
     all_launches["standalone"] = launches
     del d_s, v_s, d_f, v_f
 
+    # ---- scan_post: the post-scan chain at its defaults on a 640x480 frame
+    cam = SyntheticRGBDCamera(SCAN_W, SCAN_H)
+    cam.open()
+    color_np, depth_np = cam.grab()
+    intr = CameraIntrinsics(cam.fx, cam.fy, cam.cx, cam.cy)
+    color_s = torch.tensor(color_np, device=dev)
+    depth_s = torch.tensor(depth_np, device=dev)
+    proc, nest = PointCloudProcessing(), NormalEstimation()
+    pcfg = proc.config
+    defaults = inspect.signature(normals.estimate_normals).parameters
+    scan_G, scan_C = defaults["grid_size"].default, defaults["cell_capacity"].default
+
+    def scan_post():
+        pc = pointcloud_from_rgbd(color_s, depth_s, intr)
+        q = proc.process_point_cloud(pc)
+        return pc, q, nest.estimate_normals(q)
+
+    (pc, q, o), launches = counted(scan_post, {"K7": 1, "K8": 1})
+    all_launches["scan_post"] = launches
+    stage_names = ("backproject", "voxel", "compact", "statistical", "radius", "normals",
+                   "orient")
+
+    def scan_post_staged():
+        """The same chain stage by stage (the functions the shims call),
+        with a CUDA event after each stage."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stage_names) + 1)]
+        ev[0].record()
+        out = [pointcloud_from_rgbd(color_s, depth_s, intr)]
+        stages = (lambda c: voxel.voxel_downsample(c, pcfg.voxel_size),
+                  lambda c: compact(c, min(c.capacity, pcfg.capacity)),
+                  lambda c: outliers.remove_statistical_outliers(
+                      c, nb_neighbors=pcfg.outlier_nb_neighbors, std_ratio=pcfg.outlier_std_ratio),
+                  lambda c: outliers.remove_radius_outliers(
+                      c, nb_points=pcfg.radius_nb_points, radius=pcfg.radius),
+                  lambda c: normals.estimate_normals(c, radius=pcfg.normal_radius,
+                                                     max_nn=pcfg.normal_max_nn),
+                  lambda c: normals.orient_normals_consistent(
+                      c, k=nest.consistent_k, iterations=nest.consistent_iterations))
+        ev[1].record()
+        for i, stage in enumerate(stages):
+            out.append(stage(out[-1]))
+            ev[i + 2].record()
+        torch.cuda.synchronize()
+        stage_ms.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+        staged[:] = out
+
+    stage_ms, staged = [], []
+    scan_ms, scan_peak = timed_frames(scan_post_staged, SCAN_RUNS, 1)
+    stage_ms = stage_ms[1:]  # without the warm-up's
+    n_pc = int(pc.valid.sum())
+    check(pc.capacity == SCAN_W * SCAN_H and q.capacity == min(staged[1].capacity, pcfg.capacity)
+          and q.capacity > normals.GRID_SWITCH, f"scan_post: capacities {pc.capacity} "
+          f"{staged[1].capacity} {q.capacity}")
+    check(bool(torch.isfinite(o.normals[q.valid]).all()), "scan_post: normals not finite")
+    # the normals' inputs and counts, and the chain with K7 / K8 plain
+    pk_s, slot_s, overflow_s = grid_knn_cuda.bin_points_packed_cuda(
+        q.points, q.valid, pcfg.normal_radius, scan_G, scan_C)
+    r2_s = float(torch.tensor(pcfg.normal_radius, dtype=torch.float32) ** 2)
+    plain_n, cnt_s = plain_grid_normals(q.points, q.valid, pcfg.normal_radius, scan_G, scan_C)
+    o_plain = normals.orient_normals_consistent(
+        dataclasses.replace(q, normals=plain_n), k=nest.consistent_k,
+        iterations=nest.consistent_iterations)
+    well_s = q.valid & (cnt_s >= 5)
+    agree_s = normals_agree(o.normals, o_plain.normals, well_s, True, "scan_post vs plain")
+    # against the truth: on the plane z = 1.8 (-1.8 after the flip) the
+    # normal is +-z wherever a neighborhood spans the plane; a neighborhood
+    # whose middle eigenvalue is under 1 % of the largest is a line of
+    # points (a cell keeps its first C points in voxel order, one 2.5 mm
+    # column of the frame), whose normal is not defined
+    (cnt_m, _, cov6), launches = counted(lambda: grid_knn_cuda.grid_pca_moments_cuda(
+        q.points, q.valid, pcfg.normal_radius, scan_G, scan_C), {"K7": 1, "K8": 1})
+    all_launches["scan_post_moments"] = launches
+    check(torch.equal(cnt_m, cnt_s), "scan_post: moments count differs from the fused count")
+    plane = well_s & ((q.points[:, 2] + 1.8).abs() < 1e-3)
+    c6 = cov6[plane].double().cpu()  # eigenvalues of the plane points' covariances, on the host
+    ev = torch.linalg.eigvalsh(torch.stack([torch.stack([c6[:, 0], c6[:, 3], c6[:, 4]], -1),
+                                            torch.stack([c6[:, 3], c6[:, 1], c6[:, 5]], -1),
+                                            torch.stack([c6[:, 4], c6[:, 5], c6[:, 2]], -1)], -2))
+    spread = ev[:, 1] > 0.01 * ev[:, 2]
+    along_z = (o.normals[plane, 2].abs() > float(np.cos(np.radians(5.0)))).cpu()
+    truth = {"plane_points": int(plane.sum()),
+             "plane_within_5deg": float(along_z.float().mean()),
+             "plane_spanning": int(spread.sum()),
+             "plane_spanning_within_5deg": float(along_z[spread].float().mean())}
+    check(truth["plane_spanning"] > 0.5 * truth["plane_points"] > 0
+          and truth["plane_spanning_within_5deg"] >= 0.95,
+          f"scan_post: normals far from the plane's: {truth}")
+    emit({"phase": "scan_post", "frame": [SCAN_H, SCAN_W], "launches": all_launches["scan_post"],
+          "ms_median": round(statistics.median(scan_ms), 3), "ms": [round(t, 3) for t in scan_ms],
+          "stages_ms": {k: round(statistics.median(r[i] for r in stage_ms), 3)
+                        for i, k in enumerate(stage_names)},
+          "points": {"frame": n_pc, "voxel": int(staged[1].valid.sum()),
+                     "voxel_capacity": staged[1].capacity, "compact": int(staged[2].valid.sum()),
+                     "compact_capacity": staged[2].capacity,
+                     "statistical": int(staged[3].valid.sum()),
+                     "radius": int(staged[4].valid.sum()),
+                     "normals_count_ge5": int(well_s.sum())},
+          "grid": [scan_G, scan_C], "overflow": float(overflow_s), "peak_mem_bytes": scan_peak,
+          "vs_plain": agree_s, "vs_truth": truth,
+          "staged_equals_shims": bool(torch.equal(staged[-1].normals, o.normals)
+                                      and torch.equal(staged[4].valid, q.valid))})
+    del staged, plain_n, o_plain, c6, cov6, ev
+
+    # ---- normals_1m / moments_1m: tools/bench_pointops.py's normals case
+    c1m = NORMALS_1M
+    pc1 = unit_cube_cloud(c1m["n"], dev)
+    nkw = dict(radius=c1m["radius"], grid_size=c1m["grid_size"],
+               cell_capacity=c1m["cell_capacity"])
+    n1m = lambda: normals.estimate_normals(pc1, max_nn=30, **nkw)  # noqa: E731
+    o1, launches = counted(n1m, {"K7": 1, "K8": 1})
+    all_launches["normals_1m"] = launches
+    ms_1m, peak_1m = timed_frames(n1m, c1m["runs"], 1)
+    G1, C1 = c1m["grid_size"], c1m["cell_capacity"]
+    pk_1, slot_1, overflow_1 = grid_knn_cuda.bin_points_packed_cuda(pc1.points, pc1.valid,
+                                                                    c1m["radius"], G1, C1)
+    r2_1 = float(torch.tensor(c1m["radius"], dtype=torch.float32) ** 2)
+    plain_1, cnt_1 = plain_grid_normals(pc1.points, pc1.valid, c1m["radius"], G1, C1)
+    agree_1 = normals_agree(o1.normals, plain_1, cnt_1 >= 5, False, "normals_1m vs plain")
+    emit({"phase": "normals_1m", "n": c1m["n"], "radius": c1m["radius"], "grid": [G1, C1],
+          "launches": launches, "ms_median": round(statistics.median(ms_1m), 3),
+          "ms": [round(t, 3) for t in ms_1m], "overflow": float(overflow_1),
+          "mean_occupancy": round(c1m["n"] / G1 ** 3, 3), "peak_mem_bytes": peak_1m,
+          "vs_plain": agree_1})
+    del plain_1
+    (n_m, mean_m, cov_m), launches = counted(lambda: grid_knn_cuda.grid_pca_moments_cuda(
+        pc1.points, pc1.valid, c1m["radius"], G1, C1), {"K7": 1, "K8": 1})
+    all_launches["moments_1m"] = launches
+    n_q, mean_q, cov_q = grid_knn.grid_pca_moments(pc1.points, pc1.valid, c1m["radius"], G1, C1)
+    cov_q6 = torch.stack([cov_q[:, 0, 0], cov_q[:, 1, 1], cov_q[:, 2, 2], cov_q[:, 0, 1],
+                          cov_q[:, 0, 2], cov_q[:, 1, 2]], -1)
+    err_m = {"mean": float((mean_m - mean_q).abs().max()),
+             "cov": float((cov_m - cov_q6).abs().max())}
+    # atol 1e-5 relative to the cloud's extent (1 m here)
+    check(torch.equal(n_m, n_q) and err_m["mean"] <= 1e-5 and err_m["cov"] <= 1e-5,
+          f"moments_1m: differs from the plain route: {err_m}")
+    emit({"phase": "moments_1m", "launches": launches, "max_abs_err": err_m,
+          "count_mean": round(float(n_m.mean()), 3)})
+    del n_m, mean_m, cov_m, n_q, mean_q, cov_q, cov_q6
+
+    # ---- normals_10m: the kernel path at the reference benchmark's scale
+    c10 = NORMALS_10M
+    pc10 = unit_cube_cloud(c10["n"], dev)
+    n10 = lambda: normals.estimate_normals(  # noqa: E731
+        pc10, radius=c10["radius"], max_nn=30, grid_size=c10["grid_size"],
+        cell_capacity=c10["cell_capacity"])
+    o10, launches = counted(n10, {"K7": 1, "K8": 1})
+    all_launches["normals_10m"] = launches
+    unit = (o10.normals.norm(dim=1) - 1.0).abs() < 1e-4
+    check(bool(torch.isfinite(o10.normals).all()) and float(unit.float().mean()) > 0.99,
+          "normals_10m: normals not finite unit vectors")
+    ms_10, peak_10 = timed_frames(n10, c10["runs"], 0)
+    emit({"phase": "normals_10m", "n": c10["n"], "radius": c10["radius"],
+          "grid": [c10["grid_size"], c10["cell_capacity"]], "launches": launches,
+          "ms_median": round(statistics.median(ms_10), 3), "ms": [round(t, 3) for t in ms_10],
+          "peak_mem_bytes": peak_10})
+    del o10
+
+    # ---- voxel_10m: tools/bench_pointops.py's voxel case (plain torch)
+    cv = VOXEL_10M
+    v10 = lambda: voxel.voxel_downsample(pc10, cv["voxel_size"],  # noqa: E731
+                                         capacity=cv["capacity"])
+    vout, launches = counted(v10, {})
+    n_vox = int(vout.valid.sum())
+    check(0 < n_vox <= 21 ** 3 and vout.capacity == cv["capacity"],
+          f"voxel_10m: {n_vox} voxels in a buffer of {vout.capacity}")
+    ms_v, peak_v = timed_frames(v10, cv["runs"], 1)
+    emit({"phase": "voxel_10m", "n": cv["n"], "voxel_size": cv["voxel_size"],
+          "capacity": cv["capacity"], "voxels": n_vox,
+          "ms_median": round(statistics.median(ms_v), 3), "ms": [round(t, 3) for t in ms_v],
+          "peak_mem_bytes": peak_v})
+    del pc10, vout
+
     # ---- kernels against their plain versions, on their paths' inputs
     rows = []
     n_el = HP * WP * DP
@@ -697,6 +959,60 @@ def main():
         "recon3d_tpu/depth/wls_pallas.py:102", slice_n["K6"], err, sum(times) / 2,
         sum(plain_times) / 2, bound_ms(5 * H * W * 4, 10 * H * W),
         ms_axis1=round(times[0], 4), ms_axis0=round(times[1], 4))
+
+    # K7 and K8 at the scan_post and normals_1m shapes. K7's yardstick is
+    # one index_select of the sorted points at the clamped slot positions:
+    # the placement without occupancy. No single PyTorch call computes K8.
+    for shape, pts_, valid_, radius_, G_, C_, pk_k, r2 in (
+            ("scan_post", q.points, q.valid, pcfg.normal_radius, scan_G, scan_C, pk_s, r2_s),
+            ("normals_1m", pc1.points, pc1.valid, c1m["radius"], G1, C1, pk_1, r2_1)):
+        _, sp, _, start, _, _, _ = grid_knn._sort_cells(pts_, valid_, radius_, G_, C_)
+        sp = sp.contiguous()
+        pk_q = grid_knn.pack_plain(sp, start, C_)
+        check(torch.equal(grid_knn_cuda.pack_cells(sp, start, C_), pk_q) and
+              torch.equal(pk_k, pk_q), f"K7 differs from its plain version ({shape})")
+        slot = torch.arange(pk_q.shape[0], device=dev)
+        pos = torch.clamp(start[slot // C_].long() + slot % C_, max=sp.shape[0] - 1)
+        row(f"K7 pack_cells {shape}", "recon3d_tpu_torch/csrc/grid_pack.cu",
+            "recon3d_tpu/ops/grid_knn_pallas.py:319", all_launches[shape]["K7"], 0.0,
+            cuda_ms(lambda: grid_knn_cuda.pack_cells(sp, start, C_), KERNEL_RUNS),
+            cuda_ms(lambda: grid_knn.pack_plain(sp, start, C_), PLAIN_RUNS),
+            bound_ms(pk_q.numel() * 4 + sp.numel() * 4 + start.numel() * 4, 0),
+            cuda_ms(lambda: torch.index_select(sp, 0, pos), KERNEL_RUNS),
+            library="torch.index_select of the sorted points at the clamped slot positions: "
+                    "the placement without occupancy", grid=[G_, C_],
+            occupied_slots=int(pk_q[:, 3].sum()))
+        del pos, slot
+        moments_path = "moments_1m" if shape == "normals_1m" else "scan_post_moments"
+        for variant, fused, path in (("moments", False, moments_path), ("fused", True, shape)):
+            out_k = grid_knn_cuda.core_call(pk_q, r2, G_, C_, fused)
+            out_q = grid_knn.core_plain(pk_q, r2, G_, C_, fused)
+            cnt = out_k[:, 3 if fused else 0]
+            check(torch.equal(cnt, out_q[:, 3 if fused else 0]),
+                  f"K8 {variant} count differs from its plain version ({shape})")
+            if fused:
+                agree = normals_agree(out_k[:, :3], out_q[:, :3], cnt >= 5, False,
+                                      f"K8 fused ({shape})")
+            else:
+                nn = torch.clamp(cnt, min=1.0)[:, None]
+                extent = float((pts_[valid_].amax(0) - pts_[valid_].amin(0)).max())
+                d1 = float((out_k[:, 1:4] / nn - out_q[:, 1:4] / nn).abs().max())
+                d2 = float((out_k[:, 4:] / nn - out_q[:, 4:] / nn).abs().max())
+                agree = {"mean": d1, "second": d2, "extent": extent,
+                         "bitwise": bool(torch.equal(out_k, out_q))}
+                check(d1 <= 1e-5 * extent and d2 <= 1e-5 * extent ** 2,
+                      f"K8 moments differ from their plain version ({shape}): {agree}")
+            nbytes = pk_q.numel() * 4 + out_k.numel() * 4
+            row(f"K8 core_call {variant} {shape}", "recon3d_tpu_torch/csrc/grid_moments.cu",
+                "recon3d_tpu/ops/grid_knn_pallas.py:147", all_launches[path]["K8"],
+                float((out_k - out_q).abs().max()),
+                cuda_ms(lambda: grid_knn_cuda.core_call(pk_q, r2, G_, C_, fused), KERNEL_RUNS),
+                cuda_ms(lambda: grid_knn.core_plain(pk_q, r2, G_, C_, fused), PLAIN_RUNS),
+                bound_ms(nbytes, k8_operations(pk_q, cnt, G_, C_, fused)), None,
+                library="none: no single PyTorch call computes it", grid=[G_, C_],
+                vs_plain=agree)
+            del out_k, out_q, cnt
+        del sp, start, pk_q
 
     emit({"kernels": rows})
     print(smi, flush=True)

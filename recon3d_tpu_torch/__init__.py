@@ -12,5 +12,8 @@ for a CPU tensor; any other device raises.
 
 Ported so far: the stereo depth path, raw pair -> two-pass rectification
 warp -> SGM (3, 4 or 8 directions) -> WLS refine -> depth -> colored point
-cloud, and `depth.DepthPipeline` over a calibrated rig.
+cloud, and `depth.DepthPipeline` over a calibrated rig; the point-cloud
+path, RGB-D frame -> colored cloud -> voxel downsample and outlier removal
+(`pointcloud_processing`) -> grid PCA normals and orientation
+(`normal_estimation`).
 """

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from recon3d_tpu_torch.ops.image import matmul3
+
 
 def pad_dist(dist) -> torch.Tensor:
     """Normalize a distortion vector to length 14 (zero-padded), float32."""
@@ -39,7 +41,12 @@ def tilt_matrix(tau_x, tau_y, dtype=torch.float32) -> torch.Tensor:
 
 
 def distort_normalized(xy: torch.Tensor, dist) -> torch.Tensor:
-    """Apply distortion to normalized image coords xy (..., 2) -> (..., 2)."""
+    """Apply distortion to normalized image coords xy (..., 2) -> (..., 2).
+
+    Op for op the JAX function as it runs outside jit, one rounding per
+    operation and the sensor tilt's 3x3 product as `ops.image.matmul3`, so
+    float32 results agree bitwise.
+    """
     d = pad_dist(dist).to(dtype=xy.dtype, device=xy.device)
     k1, k2, p1, p2, k3, k4, k5, k6, s1, s2, s3, s4, tx, ty = [d[i] for i in range(14)]
     x, y = xy[..., 0], xy[..., 1]
@@ -48,9 +55,8 @@ def distort_normalized(xy: torch.Tensor, dist) -> torch.Tensor:
     radial = (1.0 + k1 * r2 + k2 * r4 + k3 * r6) / (1.0 + k4 * r2 + k5 * r4 + k6 * r6)
     xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x) + s1 * r2 + s2 * r4
     yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y + s3 * r2 + s4 * r4
-    out = torch.stack([xd, yd], -1)
     if float(tx) == 0.0 and float(ty) == 0.0:  # tilt is almost always zero
-        return out
+        return torch.stack([xd, yd], -1)
     T = tilt_matrix(tx, ty, dtype=xy.dtype).to(xy.device)
-    h = torch.cat([out, torch.ones_like(out[..., :1])], -1) @ T.T
+    h = matmul3(torch.stack([xd, yd, torch.ones_like(xd)], -1), T)
     return h[..., :2] / h[..., 2:3]

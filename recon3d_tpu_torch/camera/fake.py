@@ -1,13 +1,19 @@
-"""Synthetic rectified stereo pair (numpy copy of recon3d_tpu/camera/fake.py:
-`_render_sphere_plane` and `FakeStereoCamera.render`).
+"""Synthetic cameras (numpy copy of recon3d_tpu/camera/fake.py:
+`_render_sphere_plane`, `SyntheticRGBDCamera`, `FakeStereoCamera.render`).
 
 The scene is an analytic sphere over a textured plane, so the depth path has
-a ground-truth disparity d = f * b / z. Pure numpy: the copy exists so the
-port builds the bench scene without importing the JAX package.
+a ground-truth disparity d = f * b / z and the point-cloud path known
+surfaces (the plane z = 1.8, the sphere at (0, 0, 1.2), r = 0.3). Pure
+numpy: the copy exists so the port builds its scenes without importing the
+JAX package.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
+
+from recon3d_tpu_torch.camera.base import Camera
 
 
 def _render_sphere_plane(fx, fy, cx, cy, h, w, pose):
@@ -56,6 +62,43 @@ def _render_sphere_plane(fx, fy, cx, cy, h, w, pose):
     color[..., 2] = np.where(sphere_closer, 0.2, 0.4 + 0.4 * checker) * tex
     color = np.where(np.isfinite(t)[..., None], np.clip(color, 0, 1), 0.0)
     return (color * 255).astype(np.uint8), depth.astype(np.float32)
+
+
+class SyntheticRGBDCamera(Camera):
+    """Procedural RGBD stream with a known camera trajectory: `grab()`
+    renders frame k (uint8 color, float32 metric depth) from `true_pose(k)`,
+    the camera-from-world transform of a slight orbit around the scene."""
+
+    def __init__(self, width=640, height=480, fx=525.0, fy=525.0,
+                 cx: Optional[float] = None, cy: Optional[float] = None,
+                 n_frames: int = 10, step: float = 0.01):
+        self.w, self.h = width, height
+        self.fx, self.fy = fx, fy
+        self.cx = cx if cx is not None else width / 2 - 0.5
+        self.cy = cy if cy is not None else height / 2 - 0.5
+        self.n_frames = n_frames
+        self.step = step
+        self._i = 0
+
+    def open(self) -> None:
+        self._i = 0
+
+    def true_pose(self, k: int) -> np.ndarray:
+        """Camera-from-world pose of frame k: small translation + yaw."""
+        ang = 0.01 * k
+        c, s = np.cos(ang), np.sin(ang)
+        T = np.eye(4)
+        T[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        T[0, 3] = self.step * k
+        T[1, 3] = 0.25 * self.step * k
+        return T
+
+    def grab(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        if self._i >= self.n_frames:
+            return None
+        pose = self.true_pose(self._i)
+        self._i += 1
+        return _render_sphere_plane(self.fx, self.fy, self.cx, self.cy, self.h, self.w, pose)
 
 
 class FakeStereoCamera:

@@ -1,9 +1,11 @@
-"""Matcher and WLS configuration (twin of recon3d_tpu/config.py:19-115).
+"""Matcher, WLS and point-cloud processing configuration (twin of
+recon3d_tpu/config.py:19-115, 128-140).
 
 Frozen dataclasses with the reference's defaults. The only difference from
 the JAX package is the `backend` vocabulary: 'cuda' is the hand-written
 kernel path (its plain PyTorch versions on CPU tensors), 'torch' the plain
-oracle of depth/sgm.py and depth/wls.py.
+oracle of depth/sgm.py and depth/wls.py, and 'auto' picks by the tensors'
+device (kernel path on CUDA, oracle on CPU) as JAX's picks by platform.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ class StereoMatcherConfig:
     subpixel: bool = True
     lr_check: bool = True
     p2_factor: int = 32
-    # 'auto' and 'cuda': the kernel path; 'torch': the plain oracle
+    # 'cuda': the kernel path; 'torch': the plain oracle; 'auto': the kernel
+    # path for CUDA tensors, the oracle for CPU tensors
     backend: str = "auto"  # 'auto' | 'cuda' | 'torch'
     # 'auto': box-count speckle on the kernel path, exact labeling on torch
     speckle_method: str = "auto"  # 'auto' | 'fast' | 'ccl'
@@ -89,3 +92,18 @@ class WLSConfig:
         if key == "f":
             return dataclasses.replace(self, sigma_color=max(self.sigma_color - 0.25, 0.25))
         return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessingConfig:
+    """Point-cloud processing (reference: pointcloud_processing.py:27-40, main flow)."""
+
+    capture_voxel_size: float = 0.01  # pointcloud_capture.py:50
+    voxel_size: float = 0.0025  # pointcloud_processing.py:27
+    outlier_nb_neighbors: int = 30  # :36
+    outlier_std_ratio: float = 1.2  # :36
+    radius_nb_points: int = 16  # :40
+    radius: float = 0.01  # :40
+    normal_max_nn: int = 50  # normal_estimation.py:20
+    normal_radius: float = 0.05  # :20
+    capacity: int = 1 << 18  # static point buffer capacity

@@ -1,11 +1,12 @@
-"""Carry the JAX package's state for the depth path across to the port.
+"""Carry the JAX package's state for the ported paths across to the port.
 
-The path has no learned weights. Its state is the matcher and WLS
-configuration (passed as ``dataclasses.asdict`` dicts of the JAX package's
-configs), the 4x4 reprojection matrix Q, optionally the pinhole intrinsics
-as a 3x3 K, the stereo calibration (`stereo_params`) and the two-pass warp
-plans (`remap_plan`); all arrive as plain Python / numpy. The JAX backends
-map onto the port's: 'pallas' -> 'cuda', 'xla' -> 'torch'.
+The paths have no learned weights. Their state is the matcher, WLS and
+point-cloud processing configuration (passed as ``dataclasses.asdict``
+dicts of the JAX package's configs), the 4x4 reprojection matrix Q,
+optionally the pinhole intrinsics as a 3x3 K, the stereo calibration
+(`stereo_params`), the two-pass warp plans (`remap_plan`) and point clouds
+(`point_cloud`); all arrive as plain Python / numpy. The JAX backends map
+onto the port's: 'pallas' -> 'cuda', 'xla' -> 'torch'.
 """
 from __future__ import annotations
 
@@ -16,9 +17,9 @@ import numpy as np
 import torch
 
 from recon3d_tpu_torch.calib.npz import StereoParams
-from recon3d_tpu_torch.config import StereoMatcherConfig, WLSConfig
+from recon3d_tpu_torch.config import ProcessingConfig, StereoMatcherConfig, WLSConfig
 from recon3d_tpu_torch.ops.warp import RemapPlan
-from recon3d_tpu_torch.utils.types import CameraIntrinsics
+from recon3d_tpu_torch.utils.types import CameraIntrinsics, PointCloud
 
 _BACKENDS = {"auto": "auto", "pallas": "cuda", "xla": "torch"}
 
@@ -71,3 +72,18 @@ def remap_plan(fields: dict, device="cuda") -> RemapPlan:
     arrays = {k: torch.as_tensor(np.array(fields[k], dt), device=device)
               for k, dt in _PLAN_ARRAYS.items()}
     return RemapPlan(**arrays, **{k: int(fields[k]) for k in _PLAN_INTS})
+
+
+def processing_config(fields: dict) -> ProcessingConfig:
+    return ProcessingConfig(**fields)
+
+
+def point_cloud(arrays: dict, device="cuda") -> PointCloud:
+    """The port's PointCloud from the JAX one's fields as numpy arrays
+    (points, valid and, where present, colors and normals), on `device`."""
+    def put(name, dtype):
+        a = arrays.get(name)
+        return None if a is None else torch.as_tensor(np.array(a, dtype), device=device)
+
+    return PointCloud(points=put("points", np.float32), valid=put("valid", bool),
+                      colors=put("colors", np.float32), normals=put("normals", np.float32))

@@ -2,11 +2,13 @@
 recon3d_tpu/depth/matcher.py).
 
 `compute_disparity` takes a rectified gray pair to a (refined) disparity.
-backend 'auto' or 'cuda' runs the kernel path (depth/sgm_cuda.py with the
-box-count speckle filter, then depth/wls_cuda.py): hand-written kernels on
-CUDA tensors, their plain versions on CPU tensors, as the JAX package runs
-its Pallas kernels in interpret mode off the TPU. backend 'torch' runs the
-plain oracle (depth/sgm.py, depth/wls.py).
+backend 'cuda' runs the kernel path (depth/sgm_cuda.py with the box-count
+speckle filter, then depth/wls_cuda.py): hand-written kernels on CUDA
+tensors, their plain versions on CPU tensors, as the JAX package runs its
+Pallas kernels in interpret mode off the TPU. backend 'torch' runs the
+plain oracle (depth/sgm.py with exact speckle labeling, depth/wls.py).
+backend 'auto' resolves by device as the JAX package resolves it by
+platform: the kernel path for CUDA tensors, the oracle for CPU tensors.
 """
 from __future__ import annotations
 
@@ -20,6 +22,15 @@ from recon3d_tpu_torch.depth import sgm_cuda as _sgmc
 from recon3d_tpu_torch.depth import wls as _wls
 from recon3d_tpu_torch.depth import wls_cuda as _wlsc
 from recon3d_tpu_torch.ops import image as im
+
+
+def uses_kernel_path(backend: str, device: torch.device) -> bool:
+    """Whether `backend` runs the kernel path for tensors on `device`:
+    'cuda' always, 'torch' never, 'auto' for CUDA tensors only (JAX's
+    'auto' is the Pallas path on a TPU and the XLA oracle elsewhere)."""
+    if backend not in ("auto", "cuda", "torch"):
+        raise ValueError(f"unknown backend {backend!r}")
+    return backend == "cuda" or (backend == "auto" and torch.device(device).type == "cuda")
 
 
 def compute_disparity(
@@ -36,9 +47,7 @@ def compute_disparity(
     else:
         num_directions = {"sgm8": 8, "sgm3": 3}.get(matcher.mode, 4)
         p1, p2 = float(matcher.p1()), float(matcher.p2())
-    if matcher.backend not in ("auto", "cuda", "torch"):
-        raise ValueError(f"unknown backend {matcher.backend!r}")
-    kernel_path = matcher.backend != "torch"
+    kernel_path = uses_kernel_path(matcher.backend, left_gray.device)
     kw = dict(
         num_disparities=matcher.num_disparities,
         block_size=matcher.block_size,

@@ -40,6 +40,8 @@ SIGNATURES = {
     "r3d_diag_accumulate": [_P, _P, _I, _I, _I, _F, _F, _I, _P],
     "r3d_fwd_scan": [_P, _P, _I, _I, _I, _F, _F, _P],
     "r3d_down_accumulate": [_P, _P, _I, _I, _I, _F, _F, _P],
+    "r3d_grid_pack": [_P, _P, _P, _I, _I, _P],
+    "r3d_grid_moments": [_P, _P, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

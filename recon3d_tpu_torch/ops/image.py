@@ -1,6 +1,6 @@
 """Dense image ops on the depth path (twin of recon3d_tpu/ops/image.py:
 `rgb_to_gray`, `normalize_minmax`, `colormap_jet`, `bilinear_sample`,
-`remap`).
+`remap`), and `matmul3`, the 3x3 product as the JAX package rounds it.
 
 Where the JAX package computes a * b + c, XLA contracts it into one fused
 multiply-add; `fma` computes that single rounding, so the port's bilinear
@@ -54,6 +54,29 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     toward = torch.where((err > 0) == (s > 0), 1, -1)
     bits = torch.where((err != 0) & ((bits & 1) == 0), bits + toward, bits)
     return bits.view(torch.float64).to(torch.float32)
+
+
+def matmul3(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """v @ M.T for (..., 3) rows and a 3x3 M, rounded as XLA's CPU matrix
+    product (Eigen) rounds it outside jit, over the n rows of v flattened:
+    in the blocks of 8 rows, output columns 0 and 1 as sequential sums
+    (v0 m0 + v1 m1) + v2 m2 and column 2 as the fused multiply-add chain
+    fma(v2, m2, fma(v1, m1, v0 m0)); the last n mod 8 rows, and all rows of
+    a product of fewer than 16 rows, as the chain in every column. (Checked
+    bitwise for n < 16 and n >= 32; products of 16-31 rows take further
+    paths there. The port's callers multiply images and clouds.)"""
+    shape = v.shape
+    v = v.reshape(-1, 3)
+    n = v.shape[0]
+    Mx = M.to(v.dtype).expand(n, 3, 3)
+    chain = torch.stack([fma(v[:, 2], Mx[:, j, 2], fma(v[:, 1], Mx[:, j, 1], v[:, 0] * M[j, 0]))
+                         for j in range(3)], -1)
+    blocked = 8 * (n // 8) if n >= 16 else 0
+    if blocked:
+        for j in range(2):
+            chain[:blocked, j] = ((v[:blocked, 0] * M[j, 0] + v[:blocked, 1] * M[j, 1])
+                                  + v[:blocked, 2] * M[j, 2])
+    return chain.reshape(shape)
 
 
 def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,

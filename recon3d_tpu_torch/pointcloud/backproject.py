@@ -1,17 +1,27 @@
 """Depth / disparity -> point cloud backprojection (twin of
 recon3d_tpu/pointcloud/backproject.py: `backproject_depth`,
-`backproject_disparity`).
+`backproject_disparity`, `pointcloud_from_rgbd`).
 
-Both produce a fixed-capacity masked PointCloud, one point slot per pixel.
+All produce a fixed-capacity masked PointCloud, one point slot per pixel.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from recon3d_tpu_torch.depth.matcher import reproject_image_to_3d
-from recon3d_tpu_torch.utils.types import CameraIntrinsics, PointCloud
+from recon3d_tpu_torch.utils.types import CameraIntrinsics, PointCloud, transform
+
+# Open3D's RGBD pipeline flips to this camera convention before visualizing
+# (test/mini1.py:170 flip transform [[1,0,0,0],[0,-1,0,0],[0,0,-1,0],[0,0,0,1]])
+FLIP_TRANSFORM = np.array([
+    [1.0, 0.0, 0.0, 0.0],
+    [0.0, -1.0, 0.0, 0.0],
+    [0.0, 0.0, -1.0, 0.0],
+    [0.0, 0.0, 0.0, 1.0],
+], np.float32)
 
 
 def _colors(color: Optional[torch.Tensor], stride: int = 1) -> Optional[torch.Tensor]:
@@ -67,3 +77,11 @@ def backproject_disparity(disparity: torch.Tensor, Q: torch.Tensor,
     valid = (d.reshape(-1) > 0) & (z > z_min) & (z < z_max)
     valid = valid & torch.isfinite(pts).all(dim=1)
     return PointCloud(points=pts, valid=valid, colors=_colors(color))
+
+
+def pointcloud_from_rgbd(color: torch.Tensor, depth: torch.Tensor, intr: CameraIntrinsics,
+                         depth_trunc: float = 3.0, flip: bool = True) -> PointCloud:
+    """RGBD frame -> colored cloud with Open3D's flip convention
+    (mini1.py:165-171); runs on the tensors' device."""
+    pc = backproject_depth(depth, intr, color=color, depth_trunc=depth_trunc)
+    return transform(pc, FLIP_TRANSFORM) if flip else pc

@@ -1,29 +1,124 @@
-"""Geometry containers (twin of recon3d_tpu/utils/types.py, the subset that
-backprojection uses).
+"""Geometry containers (twin of recon3d_tpu/utils/types.py: `PointCloud`,
+`compact`, `concatenate`, `transform`, `CameraIntrinsics`).
 
 Like the JAX package, a cloud is a fixed-capacity buffer plus a validity
-mask: one point slot per pixel, no dynamic sizing on the device.
+mask: ops that shrink data clear mask bits, and `compact` re-packs the valid
+rows to the front when a smaller buffer is wanted.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
+
+from recon3d_tpu_torch.ops.image import matmul3
 
 
 @dataclasses.dataclass(frozen=True)
 class PointCloud:
     """Fixed-capacity point cloud with a validity mask.
 
-    points: (N, 3) float32; colors: (N, 3) float32 in [0, 1] or None;
-    normals: (N, 3) float32 or None; valid: (N,) bool.
+    points: (N, 3) float32 (invalid rows hold arbitrary data); colors:
+    (N, 3) float32 in [0, 1] or None; normals: (N, 3) float32 or None;
+    valid: (N,) bool.
     """
 
     points: torch.Tensor
     valid: torch.Tensor
     colors: Optional[torch.Tensor] = None
     normals: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.points.shape[0]
+
+    def count(self) -> torch.Tensor:
+        """Number of valid points (a 0-d tensor on the cloud's device)."""
+        return self.valid.sum()
+
+    @staticmethod
+    def from_numpy(points: np.ndarray, colors: Optional[np.ndarray] = None,
+                   normals: Optional[np.ndarray] = None, capacity: Optional[int] = None,
+                   device="cuda") -> "PointCloud":
+        """Build from host arrays, padding with zeros up to `capacity`."""
+        n = points.shape[0]
+        cap = capacity or n
+        if cap < n:
+            raise ValueError(f"capacity {cap} < number of points {n}")
+
+        def pad(a):
+            if a is None:
+                return None
+            out = np.zeros((cap, 3), np.float32)
+            out[:n] = a
+            return torch.as_tensor(out, device=device)
+
+        valid = np.zeros((cap,), bool)
+        valid[:n] = True
+        return PointCloud(points=pad(points), colors=pad(colors), normals=pad(normals),
+                          valid=torch.as_tensor(valid, device=device))
+
+    def to_numpy(self):
+        """(points, colors, normals) host arrays of the valid rows only."""
+        valid = self.valid.cpu().numpy()
+
+        def host(a):
+            return None if a is None else a.cpu().numpy()[valid]
+
+        return host(self.points), host(self.colors), host(self.normals)
+
+    def masked_points(self, fill: float = float("inf")) -> torch.Tensor:
+        """Points with invalid rows replaced by `fill`."""
+        return torch.where(self.valid[:, None], self.points, fill)
+
+
+def compact(pc: PointCloud, capacity: int) -> PointCloud:
+    """Pack valid points to the front and truncate / pad to `capacity`.
+
+    Stable: valid rows keep their relative order (a stable sort of the
+    inverted mask, as the JAX package's argsort); padding rows repeat row 0
+    and are invalid.
+    """
+    order = torch.sort((~pc.valid).to(torch.uint8), stable=True).indices
+    if capacity <= pc.capacity:
+        idx = order[:capacity]
+    else:
+        idx = torch.cat([order, order.new_zeros(capacity - pc.capacity)])
+    n_valid = pc.valid.sum()
+    new_valid = torch.arange(capacity, device=pc.valid.device) < torch.clamp(n_valid,
+                                                                             max=capacity)
+
+    def take(a):
+        return None if a is None else a[idx]
+
+    return PointCloud(points=take(pc.points), colors=take(pc.colors),
+                      normals=take(pc.normals), valid=new_valid)
+
+
+def concatenate(a: PointCloud, b: PointCloud) -> PointCloud:
+    """Concatenate two clouds (capacity = sum of capacities)."""
+
+    def cat(x, y, name):
+        if (x is None) != (y is None):
+            raise ValueError(f"one cloud has {name}, the other does not")
+        return None if x is None else torch.cat([x, y], 0)
+
+    return PointCloud(points=torch.cat([a.points, b.points], 0),
+                      colors=cat(a.colors, b.colors, "colors"),
+                      normals=cat(a.normals, b.normals, "normals"),
+                      valid=torch.cat([a.valid, b.valid], 0))
+
+
+def transform(pc: PointCloud, T) -> PointCloud:
+    """Apply a 4x4 rigid transform (reference: pointcloud_alignment.py:44),
+    the rotation as the JAX package's product rounds it (`matmul3`)."""
+    T = torch.as_tensor(T, dtype=torch.float32, device=pc.points.device)
+    R, t = T[:3, :3], T[:3, 3]
+    pts = matmul3(pc.points, R) + t
+    normals = None if pc.normals is None else matmul3(pc.normals, R)
+    return dataclasses.replace(pc, points=pts, normals=normals)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,10 @@
 """On-card checks of the port's kernels against their plain versions at
 shapes chip_smoke.py does not drive: an unaligned warp, D = 256, wide and
 tall volumes (diagonal lines entering through the side columns), 3, 4 and 8
-directions, a nonzero min_disparity, and DepthPipeline on the card against
-itself on the CPU. A CUDA kernel has no CPU mode, so these tests are marked
+directions, a nonzero min_disparity, DepthPipeline on the card against
+itself on the CPU, backend 'auto' on the card, K7 (bitwise, overflow
+included) and K8 (bitwise, both variants) on small grids, and the grid
+normals on the card against the CPU. A CUDA kernel has no CPU mode, so these tests are marked
 `cuda` and skip without a card. On a machine with one (no JAX needed):
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda_kernels.py
@@ -11,7 +13,6 @@ All SGM arithmetic is integer-valued f32 and the warp reproduces one
 rounding per operation, so kernel and plain version agree bitwise; the
 disparity bar is the SGM one, valid equal and |delta| < 1e-4.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -20,8 +21,10 @@ import torch
 import chip_smoke
 from recon3d_tpu_torch.camera.fake import FakeStereoCamera
 from recon3d_tpu_torch.config import StereoMatcherConfig
-from recon3d_tpu_torch.depth import DepthPipeline, sgm_cuda
-from recon3d_tpu_torch.ops import warp
+from recon3d_tpu_torch.depth import DepthPipeline, compute_disparity, sgm_cuda
+from recon3d_tpu_torch.ops import grid_knn, grid_knn_cuda, warp
+from recon3d_tpu_torch.pointcloud import normals
+from recon3d_tpu_torch.utils.types import PointCloud
 
 pytestmark = pytest.mark.cuda
 
@@ -103,13 +106,14 @@ def test_depth_pipeline_on_card_matches_cpu(dev):
         K[:2] *= s
     for P in (params.P1, params.P2):
         P[:2] *= s
-    cfg = StereoMatcherConfig.tuned(num_disparities=32)
+    cfg = StereoMatcherConfig.tuned(num_disparities=32, backend="cuda")
     on_card = DepthPipeline(params, (W, H), cfg, with_wls=False, device=dev)
     on_cpu = DepthPipeline(params, (W, H), cfg, with_wls=False, device="cpu")
     assert on_card.plans is not None
-    # the card's plans (its float32 maps may differ from the CPU's in the last bit)
-    on_cpu.plans = tuple(dataclasses.replace(p, **{k: getattr(p, k).cpu() for k in (
-        "vy", "hx", "valid", "v_coarse", "h_coarse")}) for p in on_card.plans)
+    # both build their maps on the host: the same plans on either device
+    for p_k, p_q in zip(on_card.plans, on_cpu.plans):
+        for k in ("vy", "hx", "valid", "v_coarse", "h_coarse"):
+            assert torch.equal(getattr(p_k, k).cpu(), getattr(p_q, k)), k
     left, right = _pair(H, W, seed=3)
     d_k, z_k, vis_k = on_card.process(left, right)
     d_q, z_q, vis_q = on_cpu.process(left, right)
@@ -117,3 +121,70 @@ def test_depth_pipeline_on_card_matches_cpu(dev):
     assert torch.equal(d_k.cpu() > 0, valid) and valid.float().mean() > 0.3
     assert float((d_k.cpu() - d_q).abs()[valid].max()) < 1e-4
     assert z_k.shape == (H, W) and vis_k.shape == (H, W, 3)
+
+
+def test_auto_backend_takes_the_kernel_path_on_the_card(dev):
+    """backend 'auto' (the default) launches the kernels for CUDA tensors."""
+    gl, gr = _pair(64, 256, seed=4)
+    before = sgm_cuda.cost_fwd_down.launches
+    d, v = compute_disparity(torch.tensor(gl, device=dev), torch.tensor(gr, device=dev),
+                             StereoMatcherConfig(num_disparities=32), with_wls=False)
+    torch.cuda.synchronize()
+    assert sgm_cuda.cost_fwd_down.launches == before + 1 and d.is_cuda
+
+
+def _unit_cube(n, seed, scale=1.0, device="cpu"):
+    rng = np.random.RandomState(seed)
+    pts = torch.tensor((rng.rand(n, 3) * scale).astype(np.float32), device=device)
+    return pts, torch.tensor(rng.rand(n) > 0.05, device=device)
+
+
+@pytest.mark.parametrize("n,G,C,r,scale", [(5000, 16, 8, 0.05, 0.8), (20000, 24, 16, 0.04, 0.8),
+                                           (40000, 16, 4, 0.05, 0.01)])
+def test_k7_matches_plain_bitwise(dev, n, G, C, r, scale):
+    """K7 against its plain version on the card, the last cloud far over
+    capacity (overflow > 0.99)."""
+    pts, valid = _unit_cube(n, 13, scale, dev)
+    before = grid_knn_cuda.pack_cells.launches
+    pk, slot, ov = grid_knn_cuda.bin_points_packed_cuda(pts, valid, r, G, C)
+    torch.cuda.synchronize()
+    assert grid_knn_cuda.pack_cells.launches == before + 1
+    pk_q, slot_q, ov_q = grid_knn._bin_points_packed(pts, valid, r, G, C)
+    assert torch.equal(pk, pk_q) and torch.equal(slot, slot_q) and float(ov) == float(ov_q)
+    pk_c, _, ov_c = grid_knn._bin_points_packed(pts.cpu(), valid.cpu(), r, G, C)
+    assert torch.equal(pk.cpu(), pk_c) and float(ov) == float(ov_c)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("n,G,C,r", [(3000, 16, 8, 0.05), (60000, 20, 32, 0.05)])
+def test_k8_matches_plain(dev, fused, n, G, C, r):
+    """K8 against its plain version on the card: count exact, and the
+    kernel adds in the plain version's order with one rounding an
+    operation, so the moments and normals agree bitwise."""
+    pts, valid = _unit_cube(n, 7, 0.7, dev)
+    pk, _, _ = grid_knn_cuda.bin_points_packed_cuda(pts, valid, r, G, C)
+    r2 = float(torch.tensor(r, dtype=torch.float32) ** 2)
+    before = grid_knn_cuda.core_call.launches
+    out = grid_knn_cuda.core_call(pk, r2, G, C, fused)
+    torch.cuda.synchronize()
+    assert grid_knn_cuda.core_call.launches == before + 1
+    ref = grid_knn.core_plain(pk, r2, G, C, fused)
+    cnt = 3 if fused else 0
+    assert torch.equal(out[:, cnt], ref[:, cnt]) and float(out[:, cnt].max()) > 3
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+
+
+def test_grid_normals_on_card_match_cpu(dev):
+    """estimate_normals above the switch on the card (K7 + K8) against the
+    same call on the CPU (plain versions), surface-like cloud."""
+    rng = np.random.RandomState(21)
+    xy = rng.rand(40000, 2).astype(np.float32) * 0.7
+    z = 0.03 * np.sin(8 * xy[:, 0]) + 0.002 * rng.randn(40000).astype(np.float32)
+    pts = np.stack([xy[:, 0], xy[:, 1], z], 1).astype(np.float32)
+    pc = PointCloud(points=torch.tensor(pts), valid=torch.ones(40000, dtype=torch.bool))
+    kw = dict(radius=0.03, grid_size=24, cell_capacity=32)
+    on_cpu = normals.estimate_normals(pc, **kw).normals
+    on_card = normals.estimate_normals(PointCloud(points=pc.points.to(dev),
+                                                  valid=pc.valid.to(dev)), **kw).normals
+    dots = (on_card.cpu() * on_cpu).sum(1).abs()
+    assert float(dots.median()) > 0.99999 and float((dots > 0.999).float().mean()) > 0.99

@@ -5,11 +5,13 @@ calib/npz.py) against the JAX package on the CPU.
 The rig is in memory: JAX-computed stereo rectification of two pinhole
 cameras with radial and tangential distortion and a small relative
 rotation, so the warp plans' shifts are real. The JAX pipeline runs backend
-"pallas" (its kernels in interpret mode), the port backend "auto" on CPU
+"pallas" (its kernels in interpret mode), the port backend "cuda" on CPU
 tensors (its kernels' plain versions). Bars:
-  rectify_maps: atol 1e-3 px (both compute in float32, and XLA fuses
-  the distortion polynomial into fused multiply-adds that PyTorch's
-  separate operations round otherwise);
+  rectify_maps: bitwise (both compute in float32 on the host, op for op:
+  the JAX function runs outside jit, so each operation rounds once; the
+  port takes LAPACK's 3x3 inverse and the sequential 3x3 products as the
+  JAX package does, and the one contraction XLA makes inside the sensor
+  tilt's lax.cond); the warp plans built from them: bitwise;
   pipeline: valid equal, disparity |delta| < 1e-4 on valid pixels (the
   SGM bar, test_sgm_pallas.py:38-43), depth through z = f b / d within
   rtol 1e-4 / atol 1e-3 carried through, visualization atol 1e-3.
@@ -24,8 +26,7 @@ bounded-contrast guide, where its systems are well conditioned; here WLS
 is checked for running on the pipeline's output.
 SGM costs of non-integer gray levels are truncated to 16 bits, so a
 last-bit difference in a map could flip a cost and move a disparity; the
-pipeline comparison therefore gives the port the JAX package's warp plans
-(convert.remap_plan) and maps, and holds rectify_maps to its own bar.
+maps and plans are bitwise, so the pipelines run on their own.
 
 The JAX frame is assembled from the JAX package's own functions as
 depth_step_planned / sgm_disparity_pallas assemble it, with one difference:
@@ -105,7 +106,7 @@ def test_rectify_maps_match(dist_len):
         out = stereo.rectify_maps(K, dist, R, P, (W, H), device="cpu")
         for o, r in zip(out, ref):
             assert o.dtype == torch.float32 and o.shape == (H, W)
-            np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0, atol=1e-3)
+            np.testing.assert_array_equal(o.numpy(), np.asarray(r))
     np.testing.assert_array_equal(model.pad_dist(tp.dist1).numpy(),
                                   np.asarray(jmodel.pad_dist(jnp.asarray(jp.dist1))))
     np.testing.assert_allclose(model.tilt_matrix(0.01, -0.005).numpy(),
@@ -203,11 +204,10 @@ def test_pipeline_process_matches_jax():
     mcfg, wcfg = JMatcher.tuned(num_disparities=D, backend="pallas"), JWLS()
     jpipe, tpipe = _pipelines(mcfg)
     assert jpipe.plans is not None and tpipe.plans is not None
-    for tplan, jplan in zip(tpipe.plans, jpipe.plans):  # the port's own plans are close
-        np.testing.assert_allclose(tplan.vy.numpy(), np.asarray(jplan.vy), atol=1e-3)
-        np.testing.assert_allclose(tplan.hx.numpy(), np.asarray(jplan.hx), atol=1e-3)
-    tpipe.plans = tuple(convert.remap_plan({k: getattr(p, k) for k in PLAN_FIELDS}, "cpu")
-                        for p in jpipe.plans)
+    for tplan, jplan in zip(tpipe.plans, jpipe.plans):  # the port's own plans, bitwise
+        for k in PLAN_FIELDS:
+            np.testing.assert_array_equal(np.asarray(getattr(tplan, k)),
+                                          np.asarray(getattr(jplan, k)), err_msg=k)
     tpipe.with_wls = False
     left, right = _raw_pair()
     ref = _jax_planned(left, right, jpipe.plans, jpipe.Q, mcfg, wcfg, False)
@@ -223,7 +223,7 @@ def test_pipeline_process_matches_jax():
 
 
 def test_depth_step_matches_jax():
-    """depth_step (gather remap) and depth_step_planned on the JAX package's
+    """depth_step (gather remap) and depth_step_planned on the port's own
     maps / plans, sgm3 without WLS (the mode the reference runs)."""
     mcfg, wcfg = JMatcher(num_disparities=D, mode="sgm3", backend="pallas"), JWLS()
     jpipe, tpipe = _pipelines(mcfg)
@@ -232,14 +232,14 @@ def test_depth_step_matches_jax():
     remap = jax.jit(jimage.remap)  # as depth_step runs it, inside one program
     ref = _jax_frame(remap(jnp.asarray(left), *maps[:2]), remap(jnp.asarray(right), *maps[2:]),
                      jpipe.Q, mcfg, wcfg, False)
-    out = depth_step(torch.tensor(left), torch.tensor(right), *map(torch.tensor, maps),
+    for tm, jm in zip(tpipe.maps, maps):
+        np.testing.assert_array_equal(tm.numpy(), jm)
+    out = depth_step(torch.tensor(left), torch.tensor(right), *tpipe.maps,
                      tpipe.Q, tpipe.matcher_config, tpipe.wls_config, False)
     _assert_frame_close(out, ref)
-    plans = [convert.remap_plan({k: getattr(p, k) for k in PLAN_FIELDS}, "cpu")
-             for p in jpipe.plans]
     ref = _jax_planned(left, right, jpipe.plans, jpipe.Q, mcfg, wcfg, False)
-    out = pipeline.depth_step_planned(torch.tensor(left), torch.tensor(right), *plans, tpipe.Q,
-                                      tpipe.matcher_config, tpipe.wls_config, False)
+    out = pipeline.depth_step_planned(torch.tensor(left), torch.tensor(right), *tpipe.plans,
+                                      tpipe.Q, tpipe.matcher_config, tpipe.wls_config, False)
     _assert_frame_close(out, ref)
 
 

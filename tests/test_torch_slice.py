@@ -199,3 +199,35 @@ def test_stereo_matcher_object_runs_on_the_cpu():
     disp, depth = m.compute(gl, gr)
     assert disp.shape == (H, W) and depth.shape == (H, W)
     assert torch.isfinite(depth).all() and (depth[disp > 0] > 0).all()
+
+
+def test_auto_backend_resolves_by_device():
+    """'auto' is the kernel path for CUDA tensors and the plain oracle for
+    CPU tensors, as JAX's 'auto' is Pallas on a TPU and XLA elsewhere."""
+    for dev, want in (("cuda", True), ("cpu", False)):
+        assert matcher.uses_kernel_path("auto", torch.device(dev)) is want
+        assert matcher.uses_kernel_path("cuda", torch.device(dev)) is True
+        assert matcher.uses_kernel_path("torch", torch.device(dev)) is False
+    with pytest.raises(ValueError, match="unknown backend"):
+        matcher.uses_kernel_path("pallas", torch.device("cpu"))
+
+
+def test_default_config_matches_jax_default():
+    """The default StereoMatcherConfig() on CPU tensors against the JAX
+    package's default on its CPU: both resolve 'auto' to their oracle (float
+    cost, exact speckle labeling). SGM stage, at the SGM bar (valid equal,
+    |delta| < 1e-4): the default WLS guide here is full-contrast, where both
+    FGS oracles are ill-conditioned (test_torch_backend_matches_xla_backend)."""
+    H, W = 48, 224
+    gl, gr, _, _, _ = _scene(H, W)
+    d_j, v_j = jmatcher.compute_disparity(jnp.asarray(gl), jnp.asarray(gr), JMatcher(), JWLS(),
+                                          False)
+    st = _state(JMatcher(), JWLS(), np.eye(4, dtype=np.float32))
+    assert st.matcher == config.StereoMatcherConfig() and st.matcher.backend == "auto"
+    d_t, v_t = matcher.compute_disparity(torch.tensor(gl), torch.tensor(gr), st.matcher, st.wls,
+                                         False)
+    d_j, v_j = np.asarray(d_j), np.asarray(v_j)
+    np.testing.assert_array_equal(v_t.numpy(), v_j)
+    assert v_j.mean() > 0.3
+    assert np.abs(d_t.numpy() - d_j)[v_j].max() < 1e-4
+    np.testing.assert_array_equal(d_t.numpy()[~v_j], d_j[~v_j])
