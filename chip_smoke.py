@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive recon3d_tpu_torch's depth and point-cloud paths on one NVIDIA H100
+"""Drive recon3d_tpu_torch's depth, point-cloud and fusion paths on one NVIDIA H100
 and hold every kernel on them to its plain PyTorch version.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
@@ -35,6 +35,17 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
   normals_10m 10M points, radius 0.008, G = 128, C = 16: the kernel path timed;
   voxel_10m   tools/bench_pointops.py's voxel case: 10M points, voxel 0.05,
               capacity 2^14 (plain torch, timed);
+  fusion      dense TSDF fusion at FusionConfig()'s defaults (256^3, voxel
+              0.004, sdf_trunc 0.02, depth_trunc 3, color) of 30
+              SyntheticRGBDCamera(640, 480) frames at their true poses, one
+              K9 launch a frame: integrate ms per frame, the 30-frame fuse,
+              peak memory, the volume from K9's plain version (bitwise), and
+              extract_point_cloud's points against the sphere and the plane;
+  mesh        Scanner3D.extract_mesh / save_mesh's steps on the fused volume:
+              extract_triangle_mesh (at the JAX package's own budget, 2^19),
+              filter_smooth_laplacian x 5, cleanup + compute_vertex_normals,
+              the binary PLY write; ms, counts, drops, the mesh of the plain
+              K9 volume (equal) and the vertices against the scene;
   kernels     each kernel against its plain version on its path's own
               inputs, its median CUDA-event time over 10 launches, the plain
               version's median over 3, the least time the card could take
@@ -54,9 +65,11 @@ import dataclasses
 import faulthandler
 import inspect
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 BUDGET_S = 300  # whole-run watchdog: a hang exits nonzero with a traceback
@@ -70,6 +83,11 @@ SCAN_W, SCAN_H, SCAN_RUNS = 640, 480, 5
 NORMALS_1M = dict(n=1_000_000, radius=0.02, grid_size=52, cell_capacity=16, runs=5)
 NORMALS_10M = dict(n=10_000_000, radius=0.008, grid_size=128, cell_capacity=16, runs=3)
 VOXEL_10M = dict(n=10_000_000, voxel_size=0.05, capacity=1 << 14, runs=3)
+# the fusion phases: FusionConfig()'s 256^3 volume fed the capture camera's
+# 640x480 frames (config.py:120, 160-169); the origin holds the sphere (z 0.9
+# to 1.5) and the plane z = 1.8, half a voxel off any plane of voxel centers
+FUSION = dict(width=640, height=480, frames=30, origin=(-0.512, -0.512, 0.902),
+              point_capacity=1 << 18, mesh_runs=3)
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 ops/s outside tensor cores
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
@@ -214,6 +232,34 @@ def bound_ms(nbytes, nops):
 
 
 
+def device_profile(fn, top=6):
+    """One call of fn under torch.profiler: its wall ms (host clock, to a
+    synchronize), the kernels' summed device ms, the device's busy share and
+    the `top` kernels by device time; (None, {}) when the trace holds no
+    device time. Also returns the device microseconds by kernel name."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us = {}
+    for e in prof.key_averages():
+        t_us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+        if e.key and t_us and not e.key.startswith(("aten::", "cuda", "Memcpy", "Memset")):
+            dev_us[e.key] = t_us
+    if not dev_us:
+        return None, {}
+    total = sum(dev_us.values()) / 1e3
+    ranked = sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]
+    return ({"wall_ms": round(wall, 4), "device_ms": round(total, 4),
+             "busy_share": round(total / wall, 4), "kernels": len(dev_us),
+             "top_ms": [[k[:100], round(t / 1e3, 4)] for k, t in ranked]}, dev_us)
+
+
 def unit_cube_cloud(n, dev):
     """tools/bench_pointops.py's cloud: n uniform unit-cube points from
     np.random.RandomState(0), all valid."""
@@ -334,6 +380,11 @@ def main():
                                                           pointcloud_from_rgbd)
     from recon3d_tpu_torch.pointcloud_processing import PointCloudProcessing
     from recon3d_tpu_torch.utils.types import CameraIntrinsics, compact
+    from recon3d_tpu_torch.config import FusionConfig, MeshConfig
+    from recon3d_tpu_torch.fusion import marching, tsdf
+    from recon3d_tpu_torch.mesh import ops as mesh_ops
+    from recon3d_tpu_torch.ops import project_sample, project_sample_cuda
+    from recon3d_tpu_torch.utils import io as ply_io
 
     dev = torch.device(DEVICE, 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -363,7 +414,8 @@ def main():
                 "K3": sgm_cuda.bwd_accumulate, "K4": sgm_cuda.vfinalize,
                 "K5": sgm_cuda.diag_accumulate, "K6": wls_cuda.tridiag_solve,
                 "K14 fwd": sgm_cuda.fwd_scan, "K14 down": sgm_cuda.down_accumulate,
-                "K7": grid_knn_cuda.pack_cells, "K8": grid_knn_cuda.core_call}
+                "K7": grid_knn_cuda.pack_cells, "K8": grid_knn_cuda.core_call,
+                "K9": project_sample_cuda.sample_images_cuda}
 
     def counted(fn, expected):
         """Run a path once with every counter at 0 before it; its counts must
@@ -792,6 +844,145 @@ def main():
           "peak_mem_bytes": peak_v})
     del pc10, vout
 
+    # ---- fusion: 30 posed 640x480 frames into FusionConfig()'s 256^3 volume
+    fcfg, mcfg, cf = FusionConfig(), MeshConfig(), FUSION
+    fcam = SyntheticRGBDCamera(cf["width"], cf["height"], n_frames=cf["frames"])
+    fcam.open()
+    fintr = CameraIntrinsics(fcam.fx, fcam.fy, fcam.cx, fcam.cy)
+    fframes = []
+    for k in range(cf["frames"]):
+        c_np, d_np = fcam.grab()
+        fframes.append((torch.tensor(c_np, device=dev), torch.tensor(d_np, device=dev),
+                        torch.tensor(fcam.true_pose(k), dtype=torch.float32, device=dev)))
+
+    def new_volume():
+        return tsdf.make_volume(fcfg.grid_resolution, fcfg.voxel_size, fcfg.sdf_trunc,
+                                origin=cf["origin"], with_color=fcfg.color, device=dev)
+
+    def fuse(frame_ms=None):
+        vol = new_volume()
+        for c_t, d_t, pose in fframes:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            vol = tsdf.integrate(vol, d_t, fintr, pose, color=c_t, depth_trunc=fcfg.depth_trunc)
+            ev[1].record()
+            if frame_ms is not None:
+                frame_ms.append(ev)
+        return vol
+
+    warm = tsdf.integrate(new_volume(), fframes[0][1], fintr, fframes[0][2],
+                          color=fframes[0][0], depth_trunc=fcfg.depth_trunc)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    frame_ev = []
+    t0 = time.perf_counter()
+    vol_k, launches = counted(lambda: fuse(frame_ev), {"K9": cf["frames"]})
+    fuse_ms = (time.perf_counter() - t0) * 1e3
+    fuse_peak = torch.cuda.max_memory_allocated(dev)
+    all_launches["fusion"] = launches
+    frame_ms = [a.elapsed_time(b) for a, b in frame_ev]
+    # where a frame's time goes: a profiler trace of the last frame's integrate
+    c_t, d_t, pose = fframes[-1]
+    prof_frame, dev_us = device_profile(lambda: tsdf.integrate(
+        vol_k, d_t, fintr, pose, color=c_t, depth_trunc=fcfg.depth_trunc))
+    if prof_frame is not None:
+        prof_frame["k9_ms"] = round(sum(t for k, t in dev_us.items()
+                                        if "project_sample" in k) / 1e3, 4)
+    # the same 30 frames with K9 replaced by its plain version
+    sampler = tsdf.sample_images_at
+    tsdf.sample_images_at = project_sample.sample_images_plain
+    try:
+        vol_q, launches = counted(fuse, {})
+    finally:
+        tsdf.sample_images_at = sampler
+    for name in ("tsdf", "weight", "color"):
+        check(torch.equal(getattr(vol_k, name), getattr(vol_q, name)),
+              f"fusion: {name} differs from the plain-K9 volume")
+    pc_f = tsdf.extract_point_cloud(vol_k, capacity=cf["point_capacity"])
+    pts_f = pc_f.points[pc_f.valid]
+
+    def scene_truth(p):
+        """Median distances of points near the sphere (center (0, 0, 1.2),
+        r 0.3) and the plane z = 1.8 to them; bar: under one voxel."""
+        d_sph = ((p - torch.tensor([0.0, 0.0, 1.2], device=p.device)).norm(dim=1) - 0.3).abs()
+        d_pl = (p[:, 2] - 1.8).abs()
+        near_s, near_p = d_sph < 0.05, d_pl < 0.05
+        out = {"sphere_points": int(near_s.sum()), "plane_points": int(near_p.sum()),
+               "sphere_median_m": float(d_sph[near_s].median()),
+               "plane_median_m": float(d_pl[near_p].median())}
+        check(out["sphere_points"] > 100 and out["plane_points"] > 100
+              and out["sphere_median_m"] < fcfg.voxel_size
+              and out["plane_median_m"] < fcfg.voxel_size, f"far from the scene: {out}")
+        return out
+
+    fusion_truth = scene_truth(pts_f)
+    emit({"phase": "fusion", "resolution": fcfg.grid_resolution, "voxel_size": fcfg.voxel_size,
+          "frame": [cf["height"], cf["width"]], "frames": cf["frames"],
+          "launches": all_launches["fusion"],
+          "integrate_ms_median": round(statistics.median(frame_ms), 4),
+          "integrate_ms": [round(t, 4) for t in frame_ms],
+          "fuse_ms": round(fuse_ms, 3), "peak_mem_bytes": fuse_peak,
+          "profiled_frame": prof_frame, "plain_k9_equal": True,
+          "surface_points": int(pc_f.valid.sum()), "vs_truth": fusion_truth})
+    del pc_f, pts_f
+
+    # ---- mesh: extract_triangle_mesh -> smooth -> cleanup + normals -> PLY
+    R_f = fcfg.grid_resolution
+    budget = marching.default_max_triangles(R_f)
+    _, _, n_1x, dropped_1x = marching.extract_triangle_soup(vol_k, max_triangles=budget,
+                                                            with_dropped=True, cap_mult=1)
+    _, _, n_4x, dropped_4x = marching.extract_triangle_soup(vol_k, max_triangles=budget,
+                                                            with_dropped=True, cap_mult=4)
+    ply_dir = tempfile.TemporaryDirectory()
+    ply_path = os.path.join(ply_dir.name, "mesh.ply")
+
+    def mesh_chain(vol, times=None):
+        t = [time.perf_counter()]
+        m = marching.extract_triangle_mesh(vol)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        m = mesh_ops.filter_smooth_laplacian(m, mcfg.smoothing_iterations)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        m = mesh_ops.compute_vertex_normals(mesh_ops.cleanup(m))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        n_vertices = ply_io.write_triangle_mesh(ply_path, m)
+        t.append(time.perf_counter())
+        if times is not None:
+            times.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
+        return m, n_vertices
+
+    mesh_ms = []
+    (mesh_k, n_vertices), launches = counted(lambda: mesh_chain(vol_k), {})
+    all_launches["mesh"] = launches
+    for _ in range(cf["mesh_runs"]):
+        mesh_chain(vol_k, mesh_ms)
+    ply_bytes = os.path.getsize(ply_path)
+    prof_extract, _ = device_profile(lambda: marching.extract_triangle_mesh(vol_k))
+    prof_chain, _ = device_profile(lambda: mesh_chain(vol_k))
+    mesh_q, _ = mesh_chain(vol_q)  # the plain-K9 volume's mesh
+    for f in dataclasses.fields(mesh_k):
+        a, b = getattr(mesh_k, f.name), getattr(mesh_q, f.name)
+        check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+              f"mesh: {f.name} differs from the plain-K9 volume's mesh")
+    verts_m = mesh_k.vertices[mesh_k.vertex_valid]
+    n_tris = int(mesh_k.triangle_valid.sum())
+    check(bool(torch.isfinite(verts_m).all()) and n_tris > 10000
+          and n_vertices == int(mesh_k.vertex_valid.sum()), "mesh: empty or not finite")
+    emit({"phase": "mesh", "launches": all_launches["mesh"], "budget": budget,
+          "rerun_4x": int(dropped_1x) > 0, "dropped_1x": int(dropped_1x),
+          "dropped_4x": int(dropped_4x), "soup_1x": int(n_1x), "soup_4x": int(n_4x),
+          "triangles": n_tris, "vertices": n_vertices, "ply_bytes": ply_bytes,
+          "ms": {k: round(statistics.median(r[i] for r in mesh_ms), 3)
+                 for i, k in enumerate(("extract", "smooth", "cleanup_normals", "ply_write"))},
+          "ms_runs": [[round(t, 3) for t in r] for r in mesh_ms], "plain_k9_equal": True,
+          "profiled_extract": prof_extract, "profiled_chain": prof_chain,
+          "vs_truth": scene_truth(verts_m)})
+    ply_dir.cleanup()
+    del mesh_q, verts_m, vol_q
+
     # ---- kernels against their plain versions, on their paths' inputs
     rows = []
     n_el = HP * WP * DP
@@ -1013,6 +1204,27 @@ def main():
                 vs_plain=agree)
             del out_k, out_q, cnt
         del sp, start, pk_q
+
+    # K9 at the fusion shape: frame 0's pixel indices and image stack. The
+    # plain version is itself one PyTorch call, the advanced-index gather,
+    # timed again over KERNEL_RUNS as the library yardstick.
+    c_t, d_t, pose = fframes[0]
+    _, _, vc, uc = tsdf._pixel_indices(vol_k, cf["height"], cf["width"], fintr, pose)
+    imgs = tsdf._image_stack(d_t, c_t)
+    s_k = project_sample_cuda.sample_images_cuda(vc, uc, imgs)
+    s_q = project_sample.sample_images_plain(vc, uc, imgs)
+    vcl, ucl = vc.long(), uc.long()
+    check(torch.equal(s_k, s_q), "K9 differs from its plain version")
+    row("K9 sample_images_at", "recon3d_tpu_torch/csrc/project_sample.cu",
+        "recon3d_tpu/ops/project_sample.py:131", all_launches["fusion"]["K9"],
+        float((s_k - s_q).abs().max()),
+        cuda_ms(lambda: project_sample_cuda.sample_images_cuda(vc, uc, imgs), KERNEL_RUNS),
+        cuda_ms(lambda: project_sample.sample_images_plain(vc, uc, imgs), PLAIN_RUNS),
+        bound_ms(vc.numel() * 8 + s_q.numel() * 4 + imgs.numel() * 4, 0),
+        cuda_ms(lambda: imgs[:, vcl, ucl], KERNEL_RUNS),
+        library="advanced-index gather imgs[:, vc, uc] (the plain version itself)",
+        shape=[*imgs.shape, fcfg.grid_resolution])
+    del vc, uc, vcl, ucl, imgs, s_k, s_q, vol_k
 
     emit({"kernels": rows})
     print(smi, flush=True)

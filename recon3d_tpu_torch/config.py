@@ -1,5 +1,5 @@
-"""Matcher, WLS and point-cloud processing configuration (twin of
-recon3d_tpu/config.py:19-115, 128-140).
+"""Matcher, WLS, point-cloud processing, fusion and meshing configuration
+(twin of recon3d_tpu/config.py:19-115, 128-140, 160-178).
 
 Frozen dataclasses with the reference's defaults. The only difference from
 the JAX package is the `backend` vocabulary: 'cuda' is the hand-written
@@ -107,3 +107,25 @@ class ProcessingConfig:
     normal_max_nn: int = 50  # normal_estimation.py:20
     normal_radius: float = 0.05  # :20
     capacity: int = 1 << 18  # static point buffer capacity
+
+
+@dataclasses.dataclass(frozen=True)
+class FusionConfig:
+    """TSDF volume settings (reference: mini1.py:33-37, check90.py:36-41)."""
+
+    voxel_size: float = 0.004
+    sdf_trunc: float = 0.02
+    grid_resolution: int = 256  # static dense-block resolution per axis
+    block_count: int = 2048  # hashed brick capacity
+    block_size: int = 8  # voxels per brick side
+    depth_trunc: float = 3.0
+    color: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Meshing settings (reference: mesh_reconstruction.py:13-39)."""
+
+    poisson_depth: int = 6
+    smoothing_iterations: int = 5
+    density_quantile: float = 0.01  # low-density vertex cull / highlight (visualizer.py:41-57)

@@ -1,11 +1,12 @@
 """Carry the JAX package's state for the ported paths across to the port.
 
-The paths have no learned weights. Their state is the matcher, WLS and
-point-cloud processing configuration (passed as ``dataclasses.asdict``
-dicts of the JAX package's configs), the 4x4 reprojection matrix Q,
-optionally the pinhole intrinsics as a 3x3 K, the stereo calibration
-(`stereo_params`), the two-pass warp plans (`remap_plan`) and point clouds
-(`point_cloud`); all arrive as plain Python / numpy. The JAX backends map
+The paths have no learned weights. Their state is the matcher, WLS,
+point-cloud processing, fusion and meshing configuration (passed as
+``dataclasses.asdict`` dicts of the JAX package's configs), the 4x4
+reprojection matrix Q, optionally the pinhole intrinsics as a 3x3 K, the
+stereo calibration (`stereo_params`), the two-pass warp plans
+(`remap_plan`), point clouds (`point_cloud`), TSDF volumes (`tsdf_volume`)
+and triangle meshes (`triangle_mesh`); all arrive as plain Python / numpy. The JAX backends map
 onto the port's: 'pallas' -> 'cuda', 'xla' -> 'torch'.
 """
 from __future__ import annotations
@@ -17,9 +18,11 @@ import numpy as np
 import torch
 
 from recon3d_tpu_torch.calib.npz import StereoParams
-from recon3d_tpu_torch.config import ProcessingConfig, StereoMatcherConfig, WLSConfig
+from recon3d_tpu_torch.config import (FusionConfig, MeshConfig, ProcessingConfig,
+                                      StereoMatcherConfig, WLSConfig)
+from recon3d_tpu_torch.fusion.tsdf import TSDFVolume
 from recon3d_tpu_torch.ops.warp import RemapPlan
-from recon3d_tpu_torch.utils.types import CameraIntrinsics, PointCloud
+from recon3d_tpu_torch.utils.types import CameraIntrinsics, PointCloud, TriangleMesh
 
 _BACKENDS = {"auto": "auto", "pallas": "cuda", "xla": "torch"}
 
@@ -87,3 +90,34 @@ def point_cloud(arrays: dict, device="cuda") -> PointCloud:
 
     return PointCloud(points=put("points", np.float32), valid=put("valid", bool),
                       colors=put("colors", np.float32), normals=put("normals", np.float32))
+
+
+def fusion_config(fields: dict) -> FusionConfig:
+    return FusionConfig(**fields)
+
+
+def mesh_config(fields: dict) -> MeshConfig:
+    return MeshConfig(**fields)
+
+
+def _put(arrays: dict, name: str, dtype, device):
+    a = arrays.get(name)
+    return None if a is None else torch.as_tensor(np.array(a, dtype), device=device)
+
+
+def tsdf_volume(arrays: dict, device="cuda") -> TSDFVolume:
+    """The port's TSDFVolume from the JAX one's fields as numpy arrays
+    (tsdf, weight, origin, voxel_size, sdf_trunc and, where present, color)."""
+    return TSDFVolume(**{k: _put(arrays, k, np.float32, device)
+                         for k in ("tsdf", "weight", "origin", "voxel_size", "sdf_trunc",
+                                   "color")})
+
+
+def triangle_mesh(arrays: dict, device="cuda") -> TriangleMesh:
+    """The port's TriangleMesh from the JAX one's fields as numpy arrays."""
+    return TriangleMesh(vertices=_put(arrays, "vertices", np.float32, device),
+                        triangles=_put(arrays, "triangles", np.int32, device),
+                        vertex_valid=_put(arrays, "vertex_valid", bool, device),
+                        triangle_valid=_put(arrays, "triangle_valid", bool, device),
+                        vertex_colors=_put(arrays, "vertex_colors", np.float32, device),
+                        vertex_normals=_put(arrays, "vertex_normals", np.float32, device))

@@ -29,7 +29,7 @@ LIB_NAME = "librecon3d_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signature of every launcher; the last argument is the cudaStream_t
 SIGNATURES = {
     "r3d_cost_fwd_down": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
@@ -42,6 +42,7 @@ SIGNATURES = {
     "r3d_down_accumulate": [_P, _P, _I, _I, _I, _F, _F, _P],
     "r3d_grid_pack": [_P, _P, _P, _I, _I, _P],
     "r3d_grid_moments": [_P, _P, _I, _I, _F, _I, _P],
+    "r3d_project_sample": [_P] * 4 + [_L, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -13,24 +13,24 @@ from recon3d_tpu_torch.pointcloud.outliers import (
     remove_statistical_outliers,
 )
 from recon3d_tpu_torch.pointcloud.voxel import voxel_downsample
+from recon3d_tpu_torch.utils.io import read_point_cloud
 from recon3d_tpu_torch.utils.types import PointCloud, compact
 
 
 class PointCloudProcessing:
-    """process_point_cloud(cloud) -> cleaned PointCloud
+    """process_point_cloud(cloud or PLY path) -> cleaned PointCloud
     (reference: pointcloud_processing.py:15-45). Runs where the cloud's
     tensors lie."""
 
     def __init__(self, config: ProcessingConfig = ProcessingConfig()):
         self.config = config
 
-    def process_point_cloud(self, source: Union[str, PointCloud]) -> PointCloud:
-        if isinstance(source, str):
-            raise NotImplementedError(
-                f"reading {source!r} needs recon3d_tpu_torch/utils/io.py (PLY / NPZ), which "
-                "the port does not have yet (ROADMAP.md, 'Types, host IO, cameras'); load the "
-                "cloud with the JAX package and pass it through convert.point_cloud")
+    def process_point_cloud(self, source: Union[str, PointCloud], device="cuda") -> PointCloud:
+        """Process a cloud, or the PLY file at path `source` read onto
+        `device` (reference: pointcloud_processing.py:24)."""
         c = self.config
+        if isinstance(source, str):
+            source = read_point_cloud(source, device=device)
         pc = voxel_downsample(source, c.voxel_size)
         pc = compact(pc, min(pc.capacity, c.capacity))
         pc = remove_statistical_outliers(pc, nb_neighbors=c.outlier_nb_neighbors,

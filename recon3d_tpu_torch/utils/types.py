@@ -1,5 +1,6 @@
 """Geometry containers (twin of recon3d_tpu/utils/types.py: `PointCloud`,
-`compact`, `concatenate`, `transform`, `CameraIntrinsics`).
+`compact`, `concatenate`, `transform`, `RGBDImage`, `TriangleMesh`,
+`CameraIntrinsics`).
 
 Like the JAX package, a cloud is a fixed-capacity buffer plus a validity
 mask: ops that shrink data clear mask bits, and `compact` re-packs the valid
@@ -119,6 +120,52 @@ def transform(pc: PointCloud, T) -> PointCloud:
     pts = matmul3(pc.points, R) + t
     normals = None if pc.normals is None else matmul3(pc.normals, R)
     return dataclasses.replace(pc, points=pts, normals=normals)
+
+
+@dataclasses.dataclass(frozen=True)
+class RGBDImage:
+    """An aligned color + depth frame: color (H, W, 3) float32 in [0, 1],
+    depth (H, W) float32 metric depth in meters (0 or non-finite = invalid)."""
+
+    color: torch.Tensor
+    depth: torch.Tensor
+
+    @property
+    def shape(self):
+        return tuple(self.depth.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class TriangleMesh:
+    """Fixed-capacity triangle mesh with validity masks.
+
+    vertices (V, 3) float32; triangles (F, 3) int32 vertex indices;
+    vertex_valid (V,) bool; triangle_valid (F,) bool; vertex_colors and
+    vertex_normals (V, 3) float32 or None.
+    """
+
+    vertices: torch.Tensor
+    triangles: torch.Tensor
+    vertex_valid: torch.Tensor
+    triangle_valid: torch.Tensor
+    vertex_colors: Optional[torch.Tensor] = None
+    vertex_normals: Optional[torch.Tensor] = None
+
+    def to_numpy(self):
+        """(vertices, triangles, colors, normals) host arrays of the valid
+        vertices, the valid triangles re-indexed to them (triangles that
+        reference an invalid vertex are dropped)."""
+        vv = self.vertex_valid.cpu().numpy()
+        tv = self.triangle_valid.cpu().numpy()
+        verts = self.vertices.cpu().numpy()
+        tris = self.triangles.cpu().numpy()
+        remap = -np.ones(len(verts), np.int64)
+        remap[vv] = np.arange(vv.sum())
+        out_tris = remap[tris[tv]]
+        out_tris = out_tris[(out_tris >= 0).all(axis=1)]
+        cols = None if self.vertex_colors is None else self.vertex_colors.cpu().numpy()[vv]
+        nrm = None if self.vertex_normals is None else self.vertex_normals.cpu().numpy()[vv]
+        return verts[vv], out_tris.astype(np.int32), cols, nrm
 
 
 @dataclasses.dataclass(frozen=True)

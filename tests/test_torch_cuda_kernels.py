@@ -3,9 +3,11 @@ shapes chip_smoke.py does not drive: an unaligned warp, D = 256, wide and
 tall volumes (diagonal lines entering through the side columns), 3, 4 and 8
 directions, a nonzero min_disparity, DepthPipeline on the card against
 itself on the CPU, backend 'auto' on the card, K7 (bitwise, overflow
-included) and K8 (bitwise, both variants) on small grids, and the grid
-normals on the card against the CPU. A CUDA kernel has no CPU mode, so these tests are marked
-`cuda` and skip without a card. On a machine with one (no JAX needed):
+included) and K8 (bitwise, both variants) on small grids, the grid
+normals on the card against the CPU, K9 on any shape, and the fusion and
+meshing slice on the card against the CPU (bitwise). A CUDA kernel has no
+CPU mode, so these tests are marked `cuda` and skip without a card. On a
+machine with one (no JAX needed):
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda_kernels.py
 
@@ -19,12 +21,15 @@ import pytest
 import torch
 
 import chip_smoke
-from recon3d_tpu_torch.camera.fake import FakeStereoCamera
+from recon3d_tpu_torch.camera.fake import FakeStereoCamera, SyntheticRGBDCamera
 from recon3d_tpu_torch.config import StereoMatcherConfig
 from recon3d_tpu_torch.depth import DepthPipeline, compute_disparity, sgm_cuda
-from recon3d_tpu_torch.ops import grid_knn, grid_knn_cuda, warp
+from recon3d_tpu_torch.fusion import marching, tsdf
+from recon3d_tpu_torch.mesh import ops as mesh_ops
+from recon3d_tpu_torch.ops import (grid_knn, grid_knn_cuda, project_sample, project_sample_cuda,
+                                   warp)
 from recon3d_tpu_torch.pointcloud import normals
-from recon3d_tpu_torch.utils.types import PointCloud
+from recon3d_tpu_torch.utils.types import CameraIntrinsics, PointCloud
 
 pytestmark = pytest.mark.cuda
 
@@ -188,3 +193,56 @@ def test_grid_normals_on_card_match_cpu(dev):
                                                   valid=pc.valid.to(dev)), **kw).normals
     dots = (on_card.cpu() * on_cpu).sum(1).abs()
     assert float(dots.median()) > 0.99999 and float((dots > 0.999).float().mean()) > 0.99
+
+
+@pytest.mark.parametrize("C,H,W,shape", [(4, 480, 640, (64, 64, 64)), (1, 37, 53, (5, 7, 3))])
+def test_k9_matches_plain(dev, C, H, W, shape):
+    """K9 against the plain gather on the card, indices over the whole
+    image (no window): a copy, so bitwise; one launch a call."""
+    g = torch.Generator().manual_seed(C * H)
+    imgs = torch.rand((C, H, W), generator=g).to(dev)
+    vc = torch.randint(0, H, shape, generator=g, dtype=torch.int32).to(dev)
+    uc = torch.randint(0, W, shape, generator=g, dtype=torch.int32).to(dev)
+    before = project_sample_cuda.sample_images_cuda.launches
+    out = project_sample.sample_images_at(vc, uc, imgs)
+    torch.cuda.synchronize()
+    assert project_sample_cuda.sample_images_cuda.launches == before + 1
+    assert out.shape == (C, *shape)
+    assert torch.equal(out, project_sample.sample_images_plain(vc, uc, imgs))
+    with pytest.raises(ValueError, match="CUDA"):
+        project_sample_cuda.sample_images_cuda(vc.cpu(), uc.cpu(), imgs.cpu())
+
+
+def test_fusion_slice_on_card_matches_cpu(dev):
+    """integrate (K9 on the card) x 3 -> extract_point_cloud and
+    extract_triangle_mesh -> smooth -> cleanup -> normals on the card
+    against the same calls on the CPU (plain versions): bitwise, as every
+    operation rounds once on both and the sums run in index order."""
+    cam = SyntheticRGBDCamera(160, 120, fx=130.0, fy=130.0, n_frames=3)
+    cam.open()
+    intr = CameraIntrinsics(130.0, 130.0, 79.5, 59.5)
+    vols = {d: tsdf.make_volume(48, 0.02, 0.06, origin=(-0.48, -0.48, 0.9), device=d)
+            for d in ("cpu", dev)}
+    before = project_sample_cuda.sample_images_cuda.launches
+    for k in range(3):
+        c, depth = cam.grab()
+        for d in vols:
+            vols[d] = tsdf.integrate(vols[d], torch.tensor(depth, device=d),
+                                     intr, torch.tensor(cam.true_pose(k), device=d),
+                                     color=torch.tensor(c, device=d))
+    assert project_sample_cuda.sample_images_cuda.launches == before + 3
+    for name in ("tsdf", "weight", "color"):
+        assert torch.equal(getattr(vols[dev], name).cpu(), getattr(vols["cpu"], name)), name
+    pcs = {d: tsdf.extract_point_cloud(v, capacity=1 << 14) for d, v in vols.items()}
+    for name in ("points", "colors", "valid"):
+        assert torch.equal(getattr(pcs[dev], name).cpu(), getattr(pcs["cpu"], name)), name
+    meshes = {}
+    for d, v in vols.items():
+        m = marching.extract_triangle_mesh(v)
+        m = mesh_ops.compute_vertex_normals(mesh_ops.cleanup(
+            mesh_ops.filter_smooth_laplacian(m, 5)))
+        meshes[d] = m
+    for f in ("vertices", "triangles", "vertex_valid", "triangle_valid", "vertex_colors",
+              "vertex_normals"):
+        assert torch.equal(getattr(meshes[dev], f).cpu(), getattr(meshes["cpu"], f)), f
+    assert int(meshes["cpu"].triangle_valid.sum()) > 5000

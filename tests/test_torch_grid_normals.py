@@ -37,6 +37,7 @@ from recon3d_tpu_torch.camera.fake import SyntheticRGBDCamera
 from recon3d_tpu_torch.ops import grid_knn, grid_knn_cuda
 from recon3d_tpu_torch.pointcloud import backproject
 from recon3d_tpu_torch.pointcloud import normals as tn
+from recon3d_tpu_torch.utils import io as tio
 from recon3d_tpu_torch.utils import types
 
 
@@ -258,7 +259,7 @@ def test_estimate_and_orient_normals_brute_force_match_jax():
     _assert_dots(to.normals.numpy()[v], np.asarray(jo.normals)[v], "consistent", signed=True)
 
 
-def test_shims_at_defaults_below_the_switch():
+def test_shims_at_defaults_below_the_switch(tmp_path):
     """PointCloudProcessing() and NormalEstimation() at their defaults on a
     small RGBD frame (N = 80 * 60 <= 32768: the brute-force path)."""
     color, depth = _frame(80, 60, cx=-10.0)
@@ -278,8 +279,15 @@ def test_shims_at_defaults_below_the_switch():
                  signed=True)
     fo = normal_estimation.estimate_normals(tq)
     assert torch.equal(fo.normals, to.normals)
-    with pytest.raises(NotImplementedError, match="utils/io.py"):
-        pointcloud_processing.PointCloudProcessing().process_point_cloud("scan.ply")
+    # a path reads the PLY (utils/io.py), as the JAX package's shim does
+    path = str(tmp_path / "scan.ply")
+    tio.write_point_cloud(path, tpc)
+    pq = pointcloud_processing.PointCloudProcessing().process_point_cloud(path, device="cpu")
+    jpq = jpp.PointCloudProcessing().process_point_cloud(path)
+    pv = np.asarray(jpq.valid)
+    np.testing.assert_array_equal(pq.valid.numpy(), pv)
+    np.testing.assert_allclose(pq.points.numpy()[pv], np.asarray(jpq.points)[pv], rtol=1e-6,
+                               atol=1e-6)
 
 
 def _frame(W, H, cx):
