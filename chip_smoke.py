@@ -21,6 +21,18 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               pair;
   standalone  aggregate_and_finalize without v1, whose forward and downward
               paths then run as the standalone scans (K14);
+  rowsharded  the rectified pair through sgm_disparity_cuda_rowsharded on a
+              4-shard in-process row mesh on this one card (1080 rows pad to
+              1088: 272 a shard, the last one's final 8 dead): K2, K13, the
+              carry relays (K10) and K12 on each shard, the shards one after
+              another (serialized, not a scaling number); bitwise against the
+              single-device kernel path;
+  rowsharded_accurate  the same with the accurate() preset (SGM-8: K11's
+              diagonal relays too);
+  batched     parallel/batch.py:batched_depth of 4 frames (render(0..3)) with
+              the tuned matcher and WLS over a 4-shard in-process frame mesh:
+              each frame bitwise against compute_disparity, the psum mean
+              against a host recomputation;
   scan_post   the post-scan chain of pipeline/scanner.py:179-180 at its
               defaults on SyntheticRGBDCamera(640, 480) frame 0:
               pointcloud_from_rgbd -> PointCloudProcessing() (voxel 0.0025,
@@ -77,6 +89,7 @@ DEVICE = "cuda"  # the card; a rehearsal of the script on the CPU sets "cpu"
 H, W, D = 1080, 1920, 128
 FOCAL, BASELINE = 1050.0, 0.06
 KERNEL_RUNS, PLAIN_RUNS, FRAMES, WARMUP = 10, 3, 10, 2
+ROW_SHARDS, BATCH = 4, 4  # the row mesh of one frame; the frames of the batched phase
 # the point-cloud phases: scanner.py:179-180's chain on a 640x480 frame and
 # tools/bench_pointops.py's cases (bench.py:698-729, 952-976)
 SCAN_W, SCAN_H, SCAN_RUNS = 640, 480, 5
@@ -381,6 +394,10 @@ def main():
     from recon3d_tpu_torch.pointcloud_processing import PointCloudProcessing
     from recon3d_tpu_torch.utils.types import CameraIntrinsics, compact
     from recon3d_tpu_torch.config import FusionConfig, MeshConfig
+    from recon3d_tpu_torch.camera.fake import FakeStereoCamera
+    from recon3d_tpu_torch.depth import sgm_sharded
+    from recon3d_tpu_torch.parallel import batch as pbatch
+    from recon3d_tpu_torch.parallel.mesh import make_mesh
     from recon3d_tpu_torch.fusion import marching, tsdf
     from recon3d_tpu_torch.mesh import ops as mesh_ops
     from recon3d_tpu_torch.ops import project_sample, project_sample_cuda
@@ -415,7 +432,9 @@ def main():
                 "K5": sgm_cuda.diag_accumulate, "K6": wls_cuda.tridiag_solve,
                 "K14 fwd": sgm_cuda.fwd_scan, "K14 down": sgm_cuda.down_accumulate,
                 "K7": grid_knn_cuda.pack_cells, "K8": grid_knn_cuda.core_call,
-                "K9": project_sample_cuda.sample_images_cuda}
+                "K9": project_sample_cuda.sample_images_cuda,
+                "K10": sgm_cuda.vscan_carry, "K11": sgm_cuda.diag_carry,
+                "K12": sgm_cuda.wta_finalize, "K13": sgm_sharded.bwd_accumulate_shard}
 
     def counted(fn, expected):
         """Run a path once with every counter at 0 before it; its counts must
@@ -671,6 +690,64 @@ def main():
           "valid_fraction": round(float(v_s.float().mean()), 5)})
     all_launches["standalone"] = launches
     del d_s, v_s, d_f, v_f
+
+    # ---- rowsharded, rowsharded_accurate: one frame's rows over a 4-shard
+    # in-process mesh on this card, against the single-device kernel path
+    row_mesh = make_mesh(ROW_SHARDS, ("row",), device=dev)
+    for name, mc, ndir, want in (
+            ("rowsharded", m, 4, {"K2": 4, "K13": 4, "K10": 8, "K12": 4}),
+            ("rowsharded_accurate", m8, 8, {"K2": 4, "K13": 4, "K10": 8, "K11": 8, "K12": 4})):
+        kw = sgm_kw(mc, ndir)
+
+        def sharded():
+            return sgm_sharded.sgm_disparity_cuda_rowsharded(gl, gr, row_mesh, **kw)
+
+        (d_s, v_s), launches = counted(sharded, want)
+        live = torch.cuda.memory_allocated(dev)  # the peak below counts these too
+        stats = frame_stats(*timed_frames(sharded))
+        prof, _ = device_profile(sharded, top=8)
+        d_1, v_1 = sgm_cuda.sgm_disparity_cuda(gl, gr, **kw)
+        check(torch.equal(d_s, d_1) and torch.equal(v_s, v_1),
+              f"{name}: differs from the single-device kernel path")
+        emit({"phase": name, "shape": [H, W, D], "mode": mc.mode, "p2": mc.p2(),
+              "shards": ROW_SHARDS, "transport": "in-process, one card: shards serialized",
+              **stats, "single_device_sgm_ms": round(cuda_ms(
+                  lambda: sgm_cuda.sgm_disparity_cuda(gl, gr, **kw), KERNEL_RUNS), 3),
+              "mem_live_before_bytes": live, "profiled_frame": prof, "launches": launches,
+              "equal_to_single_device": True,
+              "valid_fraction": round(float(v_s.float().mean()), 5)})
+        all_launches[name] = launches
+        del d_s, v_s, d_1, v_1
+
+    # ---- batched: batched_depth of 4 frames over a 4-shard frame mesh
+    cam4 = FakeStereoCamera(width=W, height=H, focal=FOCAL, baseline=BASELINE)
+    pairs = [cam4.render(k)[:2] for k in range(BATCH)]
+    ls, rs = (torch.tensor(np.stack([p[i] for p in pairs]), dtype=torch.float32, device=dev)
+              for i in (0, 1))
+    frame_mesh = make_mesh(BATCH, ("frame",), device=dev)
+    batched = lambda: pbatch.batched_depth(ls, rs, frame_mesh, m, w)  # noqa: E731
+    (b_disp, b_valid, b_mean), launches = counted(
+        batched, {"K2": BATCH, "K3": BATCH, "K4": BATCH, "K6": 6 * BATCH})
+    live = torch.cuda.memory_allocated(dev)
+    ms, peak = timed_frames(batched)
+    for k in range(BATCH):
+        d_1, v_1 = compute_disparity(ls[k], rs[k], m, w, True)
+        check(torch.equal(b_disp[k], d_1) and torch.equal(b_valid[k], v_1),
+              f"batched: frame {k} differs from compute_disparity")
+    d_h, v_h = b_disp.cpu().double().numpy(), b_valid.cpu().numpy()
+    mean_host = float(d_h[v_h].sum() / max(v_h.sum(), 1))
+    check(abs(float(b_mean) - mean_host) <= 1e-6 * abs(mean_host),
+          f"batched: mean {float(b_mean)} against the host's {mean_host}")
+    med = statistics.median(ms)
+    emit({"phase": "batched", "shape": [H, W, D], "frames": BATCH, "shards": BATCH,
+          "transport": "in-process, one card: shards serialized",
+          "batch_ms_median": round(med, 3), "batch_ms": [round(t, 3) for t in ms],
+          "fps": round(BATCH * 1e3 / med, 3), "peak_mem_bytes": peak,
+          "mem_live_before_bytes": live, "launches": launches,
+          "frames_equal_to_compute_disparity": True, "mean_disparity": float(b_mean),
+          "mean_host": mean_host, "valid_fraction": round(float(b_valid.float().mean()), 5)})
+    all_launches["batched"] = launches
+    del ls, rs, pairs, b_disp, b_valid, d_1, v_1
 
     # ---- scan_post: the post-scan chain at its defaults on a 640x480 frame
     cam = SyntheticRGBDCamera(SCAN_W, SCAN_H)
@@ -1129,6 +1206,88 @@ def main():
             bound_ms(cost_b + 2 * v1_b, 2 * 9 * n_el))
         del out_k, out_q
     del cost8, v8
+
+    # K10-K13 on the last shard of the rowsharded frames (h_real of its rows
+    # real, the rest dead), on its own volumes and the carry planes that the
+    # shards before it relay down to it; K10 and K11 take that real carry in
+    # both directions (in the frame the upward chain starts there from zero)
+    last = ROW_SHARDS - 1
+    sh = sgm_sharded.shard_volumes(gl, gr, row_mesh, D, 0, m.block_size, m.pre_filter_cap, p1,
+                                   p2)
+    cost_l, h_l = sh.cost[last], sh.h_real(last)
+    el = cost_l.numel()
+    shard_b = el * 2 + 2 * el * 4  # the cost read, the path volume read and written
+    v1_l = sh.S[last].clone()
+    v3_k = sgm_sharded.bwd_accumulate_shard(cost_l, v1_l.clone(), p1, p2)
+    v3_q = sgm_cuda.bwd_accumulate_plain(cost_l, v1_l.clone(), p1, p2)
+    check(torch.equal(v3_k, v3_q), "K13 differs from its plain version")
+    row("K13 bwd_accumulate_shard", "recon3d_tpu_torch/csrc/sgm_bwd.cu",
+        "recon3d_tpu/depth/sgm_sharded.py:59", all_launches["rowsharded"]["K13"],
+        float((v3_k - v3_q).abs().max()),
+        cuda_ms(lambda v: sgm_sharded.bwd_accumulate_shard(cost_l, v, p1, p2), KERNEL_RUNS,
+                lambda: (v1_l.clone(),)),
+        cuda_ms(lambda v: sgm_cuda.bwd_accumulate_plain(cost_l, v, p1, p2), PLAIN_RUNS,
+                lambda: (v1_l.clone(),)),
+        bound_ms(shard_b, 8 * el), shard=list(cost_l.shape), h_real=h_l)
+    del v1_l, v3_k, v3_q
+
+    def relayed_carry(shards, scan, planes, mc):
+        """The carry the shards before the last relay down to it."""
+        carry = torch.zeros(planes + tuple(cost_l.shape[1:]), device=dev)
+        for k in range(last):
+            _, carry = scan(shards.cost[k], shards.S[k].clone(), carry, p1, float(mc.p2()), False,
+                            shards.h_real(k))
+        return carry
+
+    def carry_rows(name, shards, scan, plain, planes, mc, launches, replaces):
+        carry = relayed_carry(shards, scan, planes, mc)
+        S_l, p2_ = shards.S[last], float(mc.p2())
+        for reverse in (False, True):
+            out_k, cout_k = scan(shards.cost[last], S_l.clone(), carry, p1, p2_, reverse, h_l)
+            out_q, cout_q = plain(shards.cost[last], S_l.clone(), carry, p1, p2_, reverse, h_l)
+            check(torch.equal(out_k, out_q) and torch.equal(cout_k, cout_q),
+                  f"{name} {reverse} differs from its plain version")
+            row(f"{name} {'up' if reverse else 'down'}", "recon3d_tpu_torch/csrc/sgm_carry.cu",
+                replaces, launches, max(float((out_k - out_q).abs().max()),
+                                        float((cout_k - cout_q).abs().max())),
+                cuda_ms(lambda v: scan(shards.cost[last], v, carry, p1, p2_, reverse, h_l),
+                        KERNEL_RUNS, lambda: (S_l.clone(),)),
+                cuda_ms(lambda v: plain(shards.cost[last], v, carry, p1, p2_, reverse, h_l),
+                        PLAIN_RUNS, lambda: (S_l.clone(),)),
+                bound_ms(shard_b + 2 * carry.numel() * 4, 9 * (planes[0] if planes else 1) * el),
+                shard=list(cost_l.shape), h_real=h_l, carry_max=float(carry.max()))
+            del out_k, out_q, cout_k, cout_q
+
+    for k in range(ROW_SHARDS):
+        sgm_sharded.bwd_accumulate_shard(sh.cost[k], sh.S[k], p1, p2)
+    carry_rows("K10 vscan_carry", sh, sgm_cuda.vscan_carry, sgm_cuda.vscan_carry_plain, (), m,
+               all_launches["rowsharded"]["K10"], "recon3d_tpu/depth/sgm_pallas.py:385")
+    # K12 on the last shard's S after the frame's two vertical relays
+    sgm_sharded.relay(sh, sgm_cuda.vscan_carry, (), False, p1, p2)
+    sgm_sharded.relay(sh, sgm_cuda.vscan_carry, (), True, p1, p2)
+    S_l = sh.S[last]
+    fin = (D, m.uniqueness_ratio, m.disp12_max_diff, m.subpixel, W)
+    d_k, val_k = sgm_cuda.wta_finalize(S_l, *fin)
+    d_q, val_q = sgm_cuda.wta_finalize_plain(S_l, *fin)
+    check(torch.equal(val_k, val_q) and torch.equal(d_k, d_q),
+          "K12 differs from its plain version")
+    row("K12 wta_finalize", "recon3d_tpu_torch/csrc/sgm_vfinalize.cu",
+        "recon3d_tpu/depth/sgm_pallas.py:537", all_launches["rowsharded"]["K12"],
+        float((d_k - d_q).abs().max()), cuda_ms(lambda: sgm_cuda.wta_finalize(S_l, *fin),
+                                                KERNEL_RUNS),
+        cuda_ms(lambda: sgm_cuda.wta_finalize_plain(S_l, *fin), PLAIN_RUNS),
+        bound_ms(el * 4 + d_k.numel() * 5, 8 * el), shard=list(S_l.shape))
+    del sh, S_l, d_k, val_k, d_q, val_q
+    # K11 on the accurate frame's last shard, after its vertical relays
+    sh = sgm_sharded.shard_volumes(gl, gr, row_mesh, D, 0, m8.block_size, m8.pre_filter_cap, p1,
+                                   p2_8)
+    for k in range(ROW_SHARDS):
+        sgm_sharded.bwd_accumulate_shard(sh.cost[k], sh.S[k], p1, p2_8)
+    sgm_sharded.relay(sh, sgm_cuda.vscan_carry, (), False, p1, p2_8)
+    sgm_sharded.relay(sh, sgm_cuda.vscan_carry, (), True, p1, p2_8)
+    carry_rows("K11 diag_carry", sh, sgm_cuda.diag_carry, sgm_cuda.diag_carry_plain, (2,), m8,
+               all_launches["rowsharded_accurate"]["K11"], "recon3d_tpu/depth/sgm_pallas.py:343")
+    del sh, cost_l
 
     # K6: the first sweep's horizontal and vertical solves of the frame's WLS
     d_sgm, v_sgm = sgm_cuda.sgm_disparity_cuda(gl, gr, **sgm_kw(m, 4))

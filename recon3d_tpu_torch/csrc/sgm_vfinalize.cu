@@ -20,6 +20,13 @@
 //      TPU's packing);
 //   3. one thread per pixel: the left-right check against the right-view
 //      disparity at x - d0, which lies outside the pixel's own warp.
+//
+// K12: r3d_wta_finalize runs launches 2 and 3 alone on a given S. It
+// replaces recon3d_tpu/depth/sgm_pallas.py:wta_finalize (kernel
+// _mk_wta_kernel, pallas_call at sgm_pallas.py:537), the row-local finalize
+// of the row-sharded path, whose paths are all aggregated before it. S is
+// read only. Bound on the H100: bytes, reading S once (315 MB for a 1080p
+// shard).
 #include "sgm_scan.cuh"
 
 namespace r3d {
@@ -111,6 +118,30 @@ __global__ void lr_check_kernel(const int* __restrict__ d0, const int* __restric
   valid[p] = ok;
 }
 
+// Launches 2 and 3 on S: disp (HP, WP) f32 and valid (HP, WP) int32; d0,
+// valid0 and dR are (HP, WP) int32 scratch.
+inline int launch_finalize(const float* S, float* disp, int* valid, int* d0, int* valid0,
+                           int* dR, int HP, int WP, int DP, int d_real, int w_real,
+                           int uniqueness_ratio, int max_diff, int do_subpixel,
+                           cudaStream_t stream) {
+  const long long npix = static_cast<long long>(HP) * WP;
+  const int lr = max_diff >= 0;
+  const float pk = static_cast<float>(DP);  // 1 << bit_length(DP - 1)
+  const long long warps = (npix + kPixelsPerWarp - 1) / kPixelsPerWarp;
+  const int blocks = static_cast<int>((warps * 32 + 255) / 256);
+  if (DP == 128)
+    wta_kernel<4><<<blocks, 256, 0, stream>>>(S, disp, d0, valid0, dR, HP, WP, d_real, w_real,
+                                              pk, uniqueness_ratio, do_subpixel, lr);
+  else
+    wta_kernel<8><<<blocks, 256, 0, stream>>>(S, disp, d0, valid0, dR, HP, WP, d_real, w_real,
+                                              pk, uniqueness_ratio, do_subpixel, lr);
+  R3D_LAUNCH_CHECK();
+  lr_check_kernel<<<static_cast<int>((npix + 255) / 256), 256, 0, stream>>>(
+      d0, valid0, dR, valid, npix, max_diff, lr);
+  R3D_LAUNCH_CHECK();
+  return 0;
+}
+
 }  // namespace r3d
 
 // cost (HP, WP, DP) int16; v (HP, WP, DP) f32 holds v3 and is overwritten
@@ -126,20 +157,17 @@ extern "C" int r3d_vfinalize(const int16_t* cost, float* v, float* disp, int* va
     return static_cast<int>(cudaErrorInvalidValue);
   int err = r3d::launch_vscan(cost, v, HP, WP, DP, p1, p2, reverse, stream);
   if (err != 0) return err;
-  const long long npix = static_cast<long long>(HP) * WP;
-  const int lr = max_diff >= 0;
-  const float pk = static_cast<float>(DP);  // 1 << bit_length(DP - 1)
-  const long long warps = (npix + r3d::kPixelsPerWarp - 1) / r3d::kPixelsPerWarp;
-  const int blocks = static_cast<int>((warps * 32 + 255) / 256);
-  if (DP == 128)
-    r3d::wta_kernel<4><<<blocks, 256, 0, stream>>>(v, disp, d0, valid0, dR, HP, WP, d_real,
-                                                   w_real, pk, uniqueness_ratio, do_subpixel, lr);
-  else
-    r3d::wta_kernel<8><<<blocks, 256, 0, stream>>>(v, disp, d0, valid0, dR, HP, WP, d_real,
-                                                   w_real, pk, uniqueness_ratio, do_subpixel, lr);
-  R3D_LAUNCH_CHECK();
-  r3d::lr_check_kernel<<<static_cast<int>((npix + 255) / 256), 256, 0, stream>>>(
-      d0, valid0, dR, valid, npix, max_diff, lr);
-  R3D_LAUNCH_CHECK();
-  return 0;
+  return r3d::launch_finalize(v, disp, valid, d0, valid0, dR, HP, WP, DP, d_real, w_real,
+                              uniqueness_ratio, max_diff, do_subpixel, stream);
+}
+
+// K12. S (HP, WP, DP) f32, read only; the other arguments as r3d_vfinalize's.
+extern "C" int r3d_wta_finalize(const float* S, float* disp, int* valid, int* d0, int* valid0,
+                                int* dR, int HP, int WP, int DP, int d_real, int w_real,
+                                int uniqueness_ratio, int max_diff, int do_subpixel,
+                                cudaStream_t stream) {
+  if ((DP != 128 && DP != 256) || d_real < 3 || d_real > DP || w_real > WP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return r3d::launch_finalize(S, disp, valid, d0, valid0, dR, HP, WP, DP, d_real, w_real,
+                              uniqueness_ratio, max_diff, do_subpixel, stream);
 }

@@ -9,6 +9,12 @@ counter:
   vfinalize         K4  csrc/sgm_vfinalize.cu  S = v3 + L_up, WTA, LR check
   fwd_scan          K14 csrc/sgm_scan.cu       v1 = L_fwd of a given cost
   down_accumulate   K14 csrc/sgm_scan.cu       v1 += L_down, in place
+  vscan_carry       K10 csrc/sgm_carry.cu      acc += a shard's vertical path, carry in / out
+  diag_carry        K11 csrc/sgm_carry.cu      acc += a shard's diagonal pair, carries in / out
+  wta_finalize      K12 csrc/sgm_vfinalize.cu  WTA finalize of a given S
+
+The row-sharded path (depth/sgm_sharded.py) relays the carries of K10 and
+K11 between shards and launches K3 once a shard as K13.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors. The padding conventions are sgm_pallas.py's
@@ -176,6 +182,15 @@ def bwd_accumulate_plain(cost_u16: torch.Tensor, v1: torch.Tensor, p1: float,
     return _scan_plain(cost_u16, v1, v1, 1, True, float(p1) * 2.0, float(p2) * 2.0)
 
 
+def launch_bwd_accumulate(cost_u16: torch.Tensor, v1: torch.Tensor, p1: float,
+                          p2: float) -> None:
+    """Launch K3's kernel on checked CUDA volumes (bwd_accumulate, and K13
+    of the row-sharded path, which counts its launches apart)."""
+    HP, WP, DP = cost_u16.shape
+    kernels.launch("r3d_bwd_accumulate", cost_u16.device, kernels.ptr(cost_u16),
+                   kernels.ptr(v1), HP, WP, DP, float(p1) * 2.0, float(p2) * 2.0)
+
+
 def bwd_accumulate(cost_u16: torch.Tensor, v1: torch.Tensor, p1: float,
                    p2: float) -> torch.Tensor:
     """K3: v3 = v1 + L_bwd (right-to-left path), written over v1 and
@@ -183,10 +198,7 @@ def bwd_accumulate(cost_u16: torch.Tensor, v1: torch.Tensor, p1: float,
     _check_volumes(cost_u16, v1)
     if not kernels.use_kernel(cost_u16, v1):
         return bwd_accumulate_plain(cost_u16, v1, p1, p2)
-    p1x, p2x = float(p1) * 2.0, float(p2) * 2.0
-    HP, WP, DP = cost_u16.shape
-    kernels.launch("r3d_bwd_accumulate", cost_u16.device, kernels.ptr(cost_u16),
-                   kernels.ptr(v1), HP, WP, DP, p1x, p2x)
+    launch_bwd_accumulate(cost_u16, v1, p1, p2)
     bwd_accumulate.launches += 1
     return v1
 
@@ -288,6 +300,102 @@ def diag_accumulate(cost_u16: torch.Tensor, v: torch.Tensor, p1: float, p2: floa
 diag_accumulate.launches = 0
 
 
+def _carry_scan_plain(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.Tensor,
+                      p1: float, p2: float, reverse: bool, h_real: int,
+                      shifts: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K10 (shifts (0,)) and K11 (shifts (+1, -1)) on any
+    device, in place on acc: row by row with one carry plane a path, each
+    column-shifted before its step (sgm_pallas._mk_vscan_io_kernel,
+    _mk_diag_io_kernel). Down: the carries start as carry_in and the ones
+    after row h_real - 1 go out. Up: they start at zero, are replaced by
+    carry_in on entering row h_real - 1, and the ones after row 0 go out."""
+    p1x, p2x = float(p1) * 2.0, float(p2) * 2.0
+    h_last = h_real - 1
+    carries = [torch.zeros_like(c) if reverse else c for c in carry_in]
+    carry_out = None
+    for y in (range(cost_u16.shape[0] - 1, -1, -1) if reverse else range(cost_u16.shape[0])):
+        if reverse and y == h_last:
+            carries = list(carry_in)
+        c = cost_u16[y].to(torch.float32)
+        carries = [_path_step(_shift_cols(ca, dx) if dx else ca, c, p1x, p2x)
+                   for ca, dx in zip(carries, shifts)]
+        acc[y] = sum(carries, acc[y])
+        if not reverse and y == h_last:
+            carry_out = torch.stack(carries)
+    return acc, torch.stack(carries) if reverse else carry_out
+
+
+def _check_carry(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.Tensor,
+                 planes: Tuple[int, ...], h_real: int) -> None:
+    _check_volumes(cost_u16, acc)
+    want = planes + tuple(cost_u16.shape[1:])
+    if carry_in.dtype != torch.float32 or tuple(carry_in.shape) != want:
+        raise ValueError(f"carry_in must be float32 {want}, got {carry_in.dtype} "
+                         f"{tuple(carry_in.shape)}")
+    if not 1 <= h_real <= cost_u16.shape[0]:
+        raise ValueError(f"h_real {h_real} outside 1..{cost_u16.shape[0]}")
+
+
+def _carry_scan(name: str, wrapper, cost_u16, acc, carry_in, p1, p2, reverse, h_real):
+    """Launch K10 / K11 (launcher `name`) and count it on `wrapper`."""
+    carry_in = carry_in.contiguous()
+    carry_out = torch.empty_like(carry_in)
+    HP, WP, DP = cost_u16.shape
+    kernels.launch(name, cost_u16.device, kernels.ptr(cost_u16), kernels.ptr(acc),
+                   kernels.ptr(carry_in), kernels.ptr(carry_out), HP, WP, DP,
+                   float(p1) * 2.0, float(p2) * 2.0, int(reverse), int(h_real))
+    wrapper.launches += 1
+    return acc, carry_out
+
+
+def vscan_carry_plain(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.Tensor,
+                      p1: float, p2: float, reverse: bool,
+                      h_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K10 on any device (in place on acc, like the kernel)."""
+    acc, carry_out = _carry_scan_plain(cost_u16, acc, carry_in[None], p1, p2, reverse, h_real,
+                                       (0,))
+    return acc, carry_out[0]
+
+
+def vscan_carry(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.Tensor, p1: float,
+                p2: float, reverse: bool, h_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10: one row shard's vertical path with relayed carry planes
+    (sgm_pallas.vscan_carry). cost_u16 / acc: the shard's padded (HP, WP,
+    DP) volumes; carry_in: the (WP, DP) f32 plane from the neighbouring
+    shard; h_real: the shard's real rows. Returns (acc + L_vert, written over
+    acc; carry_out (WP, DP)). reverse: the upward path. p1 / p2 in cv2 units."""
+    _check_carry(cost_u16, acc, carry_in, (), h_real)
+    if not kernels.use_kernel(cost_u16, acc, carry_in):
+        return vscan_carry_plain(cost_u16, acc, carry_in, p1, p2, reverse, h_real)
+    return _carry_scan("r3d_vscan_carry", vscan_carry, cost_u16, acc, carry_in, p1, p2,
+                       reverse, h_real)
+
+
+vscan_carry.launches = 0
+
+
+def diag_carry_plain(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.Tensor,
+                     p1: float, p2: float, reverse: bool,
+                     h_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K11 on any device (in place on acc, like the kernel)."""
+    return _carry_scan_plain(cost_u16, acc, carry_in, p1, p2, reverse, h_real, (1, -1))
+
+
+def diag_carry(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.Tensor, p1: float,
+               p2: float, reverse: bool, h_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11: vscan_carry for the diagonal pair of one vertical direction
+    (sgm_pallas.diag_carry), with (2, WP, DP) carries: plane 0 receives from
+    x - 1, plane 1 from x + 1."""
+    _check_carry(cost_u16, acc, carry_in, (2,), h_real)
+    if not kernels.use_kernel(cost_u16, acc, carry_in):
+        return diag_carry_plain(cost_u16, acc, carry_in, p1, p2, reverse, h_real)
+    return _carry_scan("r3d_diag_carry", diag_carry, cost_u16, acc, carry_in, p1, p2,
+                       reverse, h_real)
+
+
+diag_carry.launches = 0
+
+
 def _finalize_plain(S: torch.Tensor, d_real: int, w_real: int, uniqueness_ratio: int,
                     disp12_max_diff: int, do_subpixel: bool):
     """WTA + subpixel + uniqueness + right-view WTA + LR check on a whole
@@ -383,6 +491,44 @@ def vfinalize(cost_u16: torch.Tensor, v3: torch.Tensor, p1: float, p2: float,
 vfinalize.launches = 0
 
 
+def wta_finalize_plain(S: torch.Tensor, num_disparities: int, uniqueness_ratio: int = 10,
+                       disp12_max_diff: int = 1, do_subpixel: bool = True,
+                       w_real: int | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K12 on any device."""
+    return _finalize_plain(S, num_disparities, S.shape[1] if w_real is None else w_real,
+                           uniqueness_ratio, disp12_max_diff, do_subpixel)
+
+
+def wta_finalize(S: torch.Tensor, num_disparities: int, uniqueness_ratio: int = 10,
+                 disp12_max_diff: int = 1, do_subpixel: bool = True,
+                 w_real: int | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K12: the WTA finalize of a fully aggregated (HP, WP, DP) f32 volume
+    S (sgm_pallas.wta_finalize), S read only. Returns (disp_raw f32 in
+    d-index units, valid bool), both (HP, WP)."""
+    if S.dtype != torch.float32 or S.ndim != 3:
+        raise ValueError(f"S must be a float32 volume, got {S.dtype} {tuple(S.shape)}")
+    HP, WP, DP = S.shape
+    if WP % 128 or DP not in (128, 256) or not 3 <= num_disparities <= DP:
+        raise ValueError(f"bad volume shape {(HP, WP, DP)} for D = {num_disparities}")
+    if not kernels.use_kernel(S):
+        return wta_finalize_plain(S, num_disparities, uniqueness_ratio, disp12_max_diff,
+                                  do_subpixel, w_real)
+    w_real = WP if w_real is None else w_real
+    dev = S.device
+    disp = torch.empty((HP, WP), dtype=torch.float32, device=dev)
+    valid, d0, valid0, dR = (torch.empty((HP, WP), dtype=torch.int32, device=dev)
+                             for _ in range(4))
+    kernels.launch("r3d_wta_finalize", dev, kernels.ptr(S), kernels.ptr(disp),
+                   kernels.ptr(valid), kernels.ptr(d0), kernels.ptr(valid0), kernels.ptr(dR),
+                   HP, WP, DP, num_disparities, w_real, uniqueness_ratio, disp12_max_diff,
+                   int(do_subpixel))
+    wta_finalize.launches += 1
+    return disp, valid > 0
+
+
+wta_finalize.launches = 0
+
+
 def aggregate_and_finalize(cost_u16: torch.Tensor, p1: float, p2: float, num_disparities: int,
                            uniqueness_ratio: int = 10, disp12_max_diff: int = 1,
                            do_subpixel: bool = True, w_real: int | None = None,
@@ -449,8 +595,16 @@ def sgm_disparity_cuda(
     disp_raw, valid = aggregate_and_finalize(
         cost, p1, p2, num_disparities, uniqueness_ratio, disp12_max_diff, do_subpixel, W,
         v1=v1, final_dir="up" if num_directions >= 4 else "down", with_diag=num_directions == 8)
-    disp_raw = disp_raw[:H, :W]
-    valid = valid[:H, :W]
+    return finish_disparity(disp_raw[:H, :W], valid[:H, :W], num_disparities, min_disparity,
+                            speckle_window_size, speckle_range, speckle_method)
+
+
+def finish_disparity(disp_raw: torch.Tensor, valid: torch.Tensor, num_disparities: int,
+                     min_disparity: int, speckle_window_size: int, speckle_range: float,
+                     speckle_method: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tail after the finalize on the (H, W) frame: the min_disparity
+    range check, the speckle filter and the -1 fill (sgm_pallas.py:1231-1245)."""
+    W = disp_raw.shape[1]
     if min_disparity:
         x = torch.arange(W, device=valid.device)[None, :]
         valid = valid & (x - (min_disparity + torch.round(disp_raw).to(torch.int64)) >= 0)

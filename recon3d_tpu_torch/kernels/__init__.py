@@ -43,6 +43,9 @@ SIGNATURES = {
     "r3d_grid_pack": [_P, _P, _P, _I, _I, _P],
     "r3d_grid_moments": [_P, _P, _I, _I, _F, _I, _P],
     "r3d_project_sample": [_P] * 4 + [_L, _I, _I, _I, _P],
+    "r3d_vscan_carry": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _I, _P],
+    "r3d_diag_carry": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _I, _P],
+    "r3d_wta_finalize": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

@@ -4,8 +4,11 @@ tall volumes (diagonal lines entering through the side columns), 3, 4 and 8
 directions, a nonzero min_disparity, DepthPipeline on the card against
 itself on the CPU, backend 'auto' on the card, K7 (bitwise, overflow
 included) and K8 (bitwise, both variants) on small grids, the grid
-normals on the card against the CPU, K9 on any shape, and the fusion and
-meshing slice on the card against the CPU (bitwise). A CUDA kernel has no
+normals on the card against the CPU, K9 on any shape, the fusion and
+meshing slice on the card against the CPU (bitwise), K10-K12 on small
+shards (both directions, dead rows below h_real), the row-sharded frame on
+the card against the single-device kernel path and batched_depth against
+compute_disparity. A CUDA kernel has no
 CPU mode, so these tests are marked `cuda` and skip without a card. On a
 machine with one (no JAX needed):
 
@@ -23,11 +26,13 @@ import torch
 import chip_smoke
 from recon3d_tpu_torch.camera.fake import FakeStereoCamera, SyntheticRGBDCamera
 from recon3d_tpu_torch.config import StereoMatcherConfig
-from recon3d_tpu_torch.depth import DepthPipeline, compute_disparity, sgm_cuda
+from recon3d_tpu_torch.depth import DepthPipeline, compute_disparity, sgm_cuda, sgm_sharded
 from recon3d_tpu_torch.fusion import marching, tsdf
 from recon3d_tpu_torch.mesh import ops as mesh_ops
 from recon3d_tpu_torch.ops import (grid_knn, grid_knn_cuda, project_sample, project_sample_cuda,
                                    warp)
+from recon3d_tpu_torch.parallel import batch
+from recon3d_tpu_torch.parallel.mesh import make_mesh
 from recon3d_tpu_torch.pointcloud import normals
 from recon3d_tpu_torch.utils.types import CameraIntrinsics, PointCloud
 
@@ -246,3 +251,70 @@ def test_fusion_slice_on_card_matches_cpu(dev):
               "vertex_normals"):
         assert torch.equal(getattr(meshes[dev], f).cpu(), getattr(meshes["cpu"], f)), f
     assert int(meshes["cpu"].triangle_valid.sum()) > 5000
+
+
+@pytest.mark.parametrize("H,W,D", [(64, 256, 128), (128, 128, 256)])
+def test_k10_k11_k12_match_plain(dev, H, W, D):
+    """The carry scans both ways on a shard whose last 8 rows are dead (real
+    cost below h_real), with carries from a real scan of another frame, and
+    the finalize of the result; lines enter through the first row and both
+    side columns."""
+    HP, WP, DP = sgm_cuda.padded_shape(H, W, D)
+    p1, p2, h_real = 200.0, 3200.0, H - 8
+    vols = []
+    for seed in (1, 2):
+        gl, gr = _pair(H, W, seed)
+        planes = sgm_cuda.prefilter_planes(torch.tensor(gl, device=dev),
+                                           torch.tensor(gr, device=dev), 63)
+        vols.append(sgm_cuda.cost_fwd_down(None, None, D, 0, 5, 63, p1, p2, HP, WP, DP, False,
+                                           planes=planes))
+    (cost, v1), (cost_b, v1_b) = vols
+    zero = torch.zeros((2, WP, DP), device=dev)
+    carries = {"vscan_carry": sgm_cuda.vscan_carry(cost_b, v1_b.clone(), zero[0], p1, p2,
+                                                   False, H)[1],
+               "diag_carry": sgm_cuda.diag_carry(cost_b, v1_b.clone(), zero, p1, p2, False,
+                                                 H)[1]}
+    S = v1.clone()
+    for name, carry in carries.items():
+        assert float(carry.max()) > 0
+        for reverse in (False, True):
+            before = getattr(sgm_cuda, name).launches
+            out_k, cout_k = getattr(sgm_cuda, name)(cost, v1.clone(), carry, p1, p2, reverse,
+                                                    h_real)
+            torch.cuda.synchronize()
+            assert getattr(sgm_cuda, name).launches == before + 1
+            out_q, cout_q = getattr(sgm_cuda, name + "_plain")(cost, v1.clone(), carry, p1, p2,
+                                                              reverse, h_real)
+            assert torch.equal(out_k, out_q) and torch.equal(cout_k, cout_q), (name, reverse)
+            S = getattr(sgm_cuda, name)(cost, S, carry, p1, p2, reverse, h_real)[0]
+    S_in = S.clone()
+    d_k, v_k = sgm_cuda.wta_finalize(S, D, 10, 1, True, w_real=W)
+    d_q, v_q = sgm_cuda.wta_finalize(S.cpu(), D, 10, 1, True, w_real=W)
+    assert torch.equal(S, S_in)
+    assert torch.equal(v_k.cpu(), v_q) and torch.equal(d_k.cpu(), d_q)
+
+
+@pytest.mark.parametrize("num_directions,H", [(3, 128), (4, 104), (8, 104)])
+def test_rowsharded_on_card_matches_single_device(dev, num_directions, H):
+    gl, gr = (torch.tensor(a, device=dev) for a in _pair(H, 256, seed=5))
+    kw = dict(num_disparities=64, block_size=5, p2=3200.0, num_directions=num_directions)
+    before = sgm_cuda.vscan_carry.launches
+    d_s, v_s = sgm_sharded.sgm_disparity_cuda_rowsharded(
+        gl, gr, make_mesh(4, ("row",), device=dev), **kw)
+    torch.cuda.synchronize()
+    assert sgm_cuda.vscan_carry.launches == before + 4 * (1 if num_directions == 3 else 2)
+    d_1, v_1 = sgm_cuda.sgm_disparity_cuda(gl, gr, **kw)
+    assert torch.equal(v_s, v_1) and torch.equal(d_s, d_1)
+    assert float(v_1.float().mean()) > 0.5
+
+
+def test_batched_depth_on_card_matches_compute_disparity(dev):
+    ls, rs = zip(*(_pair(96, 256, seed=k) for k in range(4)))
+    ls, rs = torch.tensor(np.stack(ls), device=dev), torch.tensor(np.stack(rs), device=dev)
+    cfg = StereoMatcherConfig.tuned(num_disparities=64, backend="cuda")
+    disp, valid, mean = batch.batched_depth(ls, rs, make_mesh(2, ("frame",), device=dev), cfg)
+    for k in range(4):
+        d1, v1 = compute_disparity(ls[k], rs[k], cfg)
+        assert torch.equal(disp[k], d1) and torch.equal(valid[k], v1)
+    d, v = disp.double(), valid
+    assert abs(float(mean) - float(d[v].sum() / v.sum())) <= 1e-5 * float(mean)
