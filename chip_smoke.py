@@ -14,7 +14,9 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
   headline    bench.py:build_headline's frame: the raw pair (the rectified
               scene pushed through the inverse of the bench's synthetic
               rectification) through the two-pass warp (K1) twice, then the
-              slice's frame and the BGR color stream's cloud;
+              slice's frame and the BGR color stream's cloud; a line before
+              it (headline_profile) gives the frame's device busy share and
+              kernel time by name under torch.profiler over 3 frames;
   pipeline    one DepthPipeline.process at 1920x1080 on an in-memory rig
               with radial distortion and small rectifying rotations;
   accurate    the accurate() preset (SGM-8, P2 = 128 * 25) on the rectified
@@ -59,10 +61,14 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               the binary PLY write; ms, counts, drops, the mesh of the plain
               K9 volume (equal) and the vertices against the scene;
   kernels     each kernel against its plain version on its path's own
-              inputs, its median CUDA-event time over 10 launches, the plain
-              version's median over 3, the least time the card could take
-              (bound_ms) and, where one PyTorch call computes the same or
-              the yardstick function, that call's time (library_ms).
+              inputs (bitwise: K2 on the rectified and the warped pair, with
+              and without the downward path; K6 on both axes), its median
+              CUDA-event time over 10 launches, the plain version's median
+              over 3, the least time the card could take (bound_ms) and,
+              where one PyTorch call computes the same or the yardstick
+              function, that call's time (library_ms); K2 also its two
+              stages (the walk, the forward scan) apart and its call
+              without the downward path, K6 each axis.
 Each path runs once with every launch counter at 0 before it, and the
 counts it leaves must be the path's kernels exactly. The frames record fps
 (median of 10 frames after 2 warm-ups), peak memory, RMSE against the same
@@ -89,6 +95,7 @@ DEVICE = "cuda"  # the card; a rehearsal of the script on the CPU sets "cpu"
 H, W, D = 1080, 1920, 128
 FOCAL, BASELINE = 1050.0, 0.06
 KERNEL_RUNS, PLAIN_RUNS, FRAMES, WARMUP = 10, 3, 10, 2
+PROFILE_FRAMES = 3  # headline frames under torch.profiler
 ROW_SHARDS, BATCH = 4, 4  # the row mesh of one frame; the frames of the batched phase
 # the point-cloud phases: scanner.py:179-180's chain on a 640x480 frame and
 # tools/bench_pointops.py's cases (bench.py:698-729, 952-976)
@@ -245,11 +252,13 @@ def bound_ms(nbytes, nops):
 
 
 
-def device_profile(fn, top=6):
-    """One call of fn under torch.profiler: its wall ms (host clock, to a
-    synchronize), the kernels' summed device ms, the device's busy share and
-    the `top` kernels by device time; (None, {}) when the trace holds no
-    device time. Also returns the device microseconds by kernel name."""
+def device_profile(fn, top=6, calls=1):
+    """One call of fn, which makes `calls` calls of a path, under
+    torch.profiler: its wall ms (host clock, to a synchronize), the kernels'
+    summed device ms, the device's busy share and the `top` kernels by
+    device time, the times per call of the path; (None, {}) when the trace
+    holds no device time. Also returns the device microseconds by kernel
+    name (over all calls)."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -268,9 +277,9 @@ def device_profile(fn, top=6):
         return None, {}
     total = sum(dev_us.values()) / 1e3
     ranked = sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]
-    return ({"wall_ms": round(wall, 4), "device_ms": round(total, 4),
+    return ({"wall_ms": round(wall / calls, 4), "device_ms": round(total / calls, 4),
              "busy_share": round(total / wall, 4), "kernels": len(dev_us),
-             "top_ms": [[k[:100], round(t / 1e3, 4)] for k, t in ranked]}, dev_us)
+             "top_ms": [[k[:100], round(t / 1e3 / calls, 4)] for k, t in ranked]}, dev_us)
 
 
 def unit_cube_cloud(n, dev):
@@ -593,6 +602,10 @@ def main():
     (lg, rg, disp, valid, pc), launches = counted(
         headline, {"K1": 4, "K2": 1, "K3": 1, "K4": 1, "K6": 6})
     stats = frame_stats(*timed_frames(headline))
+    # the frame's device busy share and kernel time by name, a frame
+    prof, _ = device_profile(lambda: [headline() for _ in range(PROFILE_FRAMES)], top=16,
+                             calls=PROFILE_FRAMES)
+    emit({"phase": "headline_profile", "frames": PROFILE_FRAMES, "per_frame": prof})
     lg_p, rg_p = warp.remap_two_pass(raw_l, plan), warp.remap_two_pass(raw_r, plan)
     check(torch.equal(lg, lg_p) and torch.equal(rg, rg_p), "headline: warp differs from plain")
     u, vp = plain_disparity(lg_p, rg_p, m, w, 4)
@@ -1116,18 +1129,47 @@ def main():
     check(torch.equal(v1_k, v1_q), "K2 v1 differs from its plain version")
     err = max(float((cost_k.float() - cost_q.float()).abs().max()),
               float((v1_k - v1_q).abs().max()))
-    # and on the headline's warped pair, whose gray levels are not integers
+    # and on the headline's warped pair, whose gray levels are not integers;
+    # on both pairs also without the downward path (the row-sharded call)
     planes_w = sgm_cuda.prefilter_planes(lg, rg, m.pre_filter_cap)
-    cost_w, v1_w = sgm_cuda.cost_fwd_down(lg, rg, D, 0, m.block_size, m.pre_filter_cap, p1, p2,
-                                          HP, WP, DP, True, planes=planes_w)
-    cost_q, v1_q = sgm_cuda.cost_fwd_down_plain(planes_w, HP, WP, DP, D, 0, m.block_size, p1,
-                                                p2)
-    check(torch.equal(cost_w, cost_q) and torch.equal(v1_w, v1_q),
-          "K2 differs from its plain version on the warped pair")
-    del cost_q, v1_q, cost_w, v1_w, planes_w
+    for pair, (a, b, pl) in (("rectified", (gl, gr, planes)), ("warped", (lg, rg, planes_w))):
+        for with_down in ((False,) if pair == "rectified" else (True, False)):
+            cost_w, v1_w = sgm_cuda.cost_fwd_down(a, b, D, 0, m.block_size, m.pre_filter_cap, p1,
+                                                  p2, HP, WP, DP, with_down, planes=pl)
+            cost_q, v1_q = sgm_cuda.cost_fwd_down_plain(pl, HP, WP, DP, D, 0, m.block_size, p1,
+                                                        p2, with_down)
+            check(torch.equal(cost_w, cost_q) and torch.equal(v1_w, v1_q),
+                  f"K2 differs from its plain version on the {pair} pair (down {with_down})")
+            del cost_q, v1_q, cost_w, v1_w
+    del planes_w
+    # its two stages timed apart through their own entry points (timing
+    # launches, not counted), on fresh volumes, then run once more in turn
+    # and held to the whole call
+    P = kernels.ptr
+    cost_s, v1_s = torch.empty_like(cost_k), torch.empty_like(v1_k)
+    walk = lambda down, v: kernels.launch(  # noqa: E731
+        "r3d_cost_walk", dev, *map(P, planes), P(cost_s), P(v), H, W, HP, WP, DP, D,
+        m.block_size, 0, 2.0 * p1, 2.0 * p2, int(down))
+    fwd = lambda down, v: kernels.launch(  # noqa: E731
+        "r3d_cost_fwd", dev, P(cost_s), P(v), HP, WP, DP, 2.0 * p1, 2.0 * p2, int(down))
+    stage_ms = {}
+    for down in (True, False):
+        key = "" if down else "_without_down"
+        stage_ms["walk" + key] = cuda_ms(lambda: walk(down, v1_s), KERNEL_RUNS)
+        stage_ms["fwd" + key] = cuda_ms(lambda v: fwd(down, v), KERNEL_RUNS,
+                                        lambda: (v1_s.clone(),))
+    walk(True, v1_s)
+    fwd(True, v1_s)
+    check(torch.equal(cost_s, cost_k) and torch.equal(v1_s, v1_k),
+          "K2's stages run apart differ from the whole call")
+    del cost_s, v1_s
+    k2_no_down = lambda: sgm_cuda.cost_fwd_down(  # noqa: E731
+        gl, gr, D, 0, m.block_size, m.pre_filter_cap, p1, p2, HP, WP, DP, False, planes=planes)
     row("K2 cost_fwd_down", "recon3d_tpu_torch/csrc/sgm_cost.cu",
         "recon3d_tpu/depth/sgm_pallas.py:985", slice_n["K2"], err, cuda_ms(k2, KERNEL_RUNS),
-        cuda_ms(k2p, PLAIN_RUNS), bound_ms(6 * H * W * 4 + cost_b + v1_b, 30 * n_el))
+        cuda_ms(k2p, PLAIN_RUNS), bound_ms(6 * H * W * 4 + cost_b + v1_b, 30 * n_el),
+        ms_without_down=round(cuda_ms(k2_no_down, KERNEL_RUNS), 4),
+        stages_ms={k: round(v, 4) for k, v in stage_ms.items()})
 
     # K14: the standalone forward scan and the downward scan, on K2's cost
     std_n = all_launches["standalone"]
@@ -1300,8 +1342,7 @@ def main():
         sp = wls_cuda.solve_planes(w_edge, conf, u0, lt, axis)
         out_k = wls_cuda.tridiag_solve(*sp, axis)
         out_q = wls_cuda.tridiag_solve_plain(*sp, axis)
-        check(torch.allclose(out_k, out_q, rtol=1e-4, atol=1e-3),
-              f"K6 axis {axis} differs from its plain version")
+        check(torch.equal(out_k, out_q), f"K6 axis {axis} differs from its plain version")
         err = max(err, float((out_k - out_q).abs().max()))
         times.append(cuda_ms(lambda: wls_cuda.tridiag_solve(*sp, axis), KERNEL_RUNS))
         plain_times.append(cuda_ms(lambda: wls_cuda.tridiag_solve_plain(*sp, axis), PLAIN_RUNS))

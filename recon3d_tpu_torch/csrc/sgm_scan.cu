@@ -5,9 +5,10 @@
 // 1064-1087): the forward scan (kernel body _mk_hscan_kernel(reverse=False,
 // accumulate=False), pallas_call at sgm_pallas.py:1067) and the downward
 // scan accumulated onto it (_mk_vscan_kernel(reverse=False), pallas_call at
-// sgm_pallas.py:1077). They are the scans K2 runs after its cost stage, so
-// both launchers are sgm_scan.cuh's warp-per-line scans over a given cost
-// volume.
+// sgm_pallas.py:1077). Both launchers are sgm_scan.cuh's warp-per-line
+// scans over a given cost volume: launch_hscan is also K2's forward scan
+// and K3's, launch_vscan also K4's vertical scan (K2 takes its downward
+// path in its cost walk).
 //
 // Bound on the H100: bytes. The forward scan reads the int16 cost (535 MB at
 // 1080p / D = 128) and writes v1 (1.07 GB); the downward scan reads the cost

@@ -139,13 +139,19 @@ def cost_fwd_down(left_gray: torch.Tensor, right_gray: torch.Tensor, num_dispari
                   planes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: padded cost volume (hp, wp, dp) int16 and v1 = L_fwd [+ L_down]
     (hp, wp, dp) f32. p1 / p2 are in cv2 units (scaled x2 here). planes
-    (from prefilter_planes) overrides the internal prefilter."""
+    (from prefilter_planes) overrides the internal prefilter. On the card two
+    launches: the walk down the columns (cost, and L_down into v1), then the
+    forward scan onto v1. block_size is odd in [1, 11], min_disparity >= 0."""
     if planes is None:
         planes = prefilter_planes(left_gray, right_gray, pre_filter_cap)
     planes = tuple(p.to(torch.float32).contiguous() for p in planes)
     H, W = planes[0].shape
     if hp % 64 or wp % 128 or dp not in (128, 256) or hp < H or wp < W or dp < num_disparities:
         raise ValueError(f"bad padded shape {(hp, wp, dp)} for {(H, W, num_disparities)}")
+    if block_size not in (1, 3, 5, 7, 9, 11) or min_disparity < 0 or num_disparities < 1:
+        raise ValueError(f"K2 takes an odd block_size in [1, 11], min_disparity >= 0 and "
+                         f"num_disparities >= 1, got {block_size}, {min_disparity}, "
+                         f"{num_disparities}")
     if not kernels.use_kernel(*planes):
         return cost_fwd_down_plain(planes, hp, wp, dp, num_disparities, min_disparity,
                                    block_size, p1, p2, with_down)

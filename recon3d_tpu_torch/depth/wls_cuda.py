@@ -4,7 +4,9 @@ Same algorithm and lambda schedule as depth/wls.py; each 1-D Thomas solve
 is one launch of kernel K6 (csrc/wls_tridiag.cu) through `tridiag_solve`,
 which runs its plain PyTorch version for CPU tensors. The TPU transposed the
 planes for the horizontal solves; here the kernel solves along either axis
-in place (axis=1: one thread per row).
+in place: one warp solves 32 lines (rows for axis=1, columns for axis=0),
+one a lane, from tiles that seven more warps stage through shared memory.
+Kernel and plain version agree bitwise.
 """
 from __future__ import annotations
 

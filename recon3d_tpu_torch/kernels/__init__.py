@@ -33,6 +33,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # C signature of every launcher; the last argument is the cudaStream_t
 SIGNATURES = {
     "r3d_cost_fwd_down": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
+    "r3d_cost_walk": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
+    "r3d_cost_fwd": [_P, _P, _I, _I, _I, _F, _F, _I, _P],
     "r3d_bwd_accumulate": [_P, _P, _I, _I, _I, _F, _F, _P],
     "r3d_vfinalize": [_P] * 7 + [_I] * 5 + [_F, _F] + [_I] * 4 + [_P],
     "r3d_tridiag": [_P] * 7 + [_I, _I, _I, _P],

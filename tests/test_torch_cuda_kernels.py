@@ -1,7 +1,9 @@
 """On-card checks of the port's kernels against their plain versions at
 shapes chip_smoke.py does not drive: an unaligned warp, D = 256, wide and
 tall volumes (diagonal lines entering through the side columns), 3, 4 and 8
-directions, a nonzero min_disparity, DepthPipeline on the card against
+directions, a nonzero min_disparity, K2 at block sizes 1 to 11 with and
+without its downward path, K6 on ragged and clamped planes (bitwise),
+DepthPipeline on the card against
 itself on the CPU, backend 'auto' on the card, K7 (bitwise, overflow
 included) and K8 (bitwise, both variants) on small grids, the grid
 normals on the card against the CPU, K9 on any shape, the fusion and
@@ -26,7 +28,8 @@ import torch
 import chip_smoke
 from recon3d_tpu_torch.camera.fake import FakeStereoCamera, SyntheticRGBDCamera
 from recon3d_tpu_torch.config import StereoMatcherConfig
-from recon3d_tpu_torch.depth import DepthPipeline, compute_disparity, sgm_cuda, sgm_sharded
+from recon3d_tpu_torch.depth import (DepthPipeline, compute_disparity, sgm_cuda, sgm_sharded,
+                                     wls_cuda)
 from recon3d_tpu_torch.fusion import marching, tsdf
 from recon3d_tpu_torch.mesh import ops as mesh_ops
 from recon3d_tpu_torch.ops import (grid_knn, grid_knn_cuda, project_sample, project_sample_cuda,
@@ -65,32 +68,82 @@ def test_k1_matches_plain_on_any_shape(dev, H, W, shift):
     assert torch.equal(out, warp.remap_two_pass(img, plan))
 
 
-@pytest.mark.parametrize("H,W,D", [(64, 384, 16), (192, 128, 160), (40, 130, 32)])
-def test_k2_k5_k14_match_plain(dev, H, W, D):
-    """K2 on a warped (non-integer) pair, K5 both ways and K14 both scans,
-    on volumes whose diagonal lines enter through the first row and both
-    side columns, with DP = 128 and 256."""
+@pytest.mark.parametrize("H,W,D,bs,md", [(64, 384, 16, 5, 0), (192, 128, 160, 5, 0),
+                                         (192, 120, 160, 11, 3), (192, 133, 160, 11, 3),
+                                         (40, 130, 32, 1, 0), (40, 130, 32, 3, 5),
+                                         (72, 200, 256, 5, 2)])
+def test_k2_k5_k14_match_plain(dev, H, W, D, bs, md):
+    """K2 on a warped (non-integer) pair, with and without the downward
+    path, K5 both ways and K14 both scans, on volumes whose diagonal lines
+    enter through the first row and both side columns (tall volumes, WP <
+    HP, cut short by the far side), with DP = 128 and 256, block sizes 1 to
+    11, min_disparity > 0 and widths that are not a multiple of K2's
+    strip."""
     gl, gr = _pair(H, W)
     mx, my = chip_smoke.synthetic_maps(H, W)
     plan = warp.build_remap_plan(mx, my, device=dev)
     gl = warp.remap_two_pass_cuda(torch.tensor(gl, device=dev), plan)
     gr = warp.remap_two_pass_cuda(torch.tensor(gr, device=dev), plan)
+    assert not torch.equal(gl, gl.round())
     HP, WP, DP = sgm_cuda.padded_shape(H, W, D)
     p1, p2 = 200.0, 3200.0
     planes = sgm_cuda.prefilter_planes(gl, gr, 63)
-    cost, v1 = sgm_cuda.cost_fwd_down(gl, gr, D, 0, 5, 63, p1, p2, HP, WP, DP, True,
+    cost, v1 = sgm_cuda.cost_fwd_down(gl, gr, D, md, bs, 63, p1, p2, HP, WP, DP, True,
                                       planes=planes)
-    cost_q, v1_q = sgm_cuda.cost_fwd_down_plain(planes, HP, WP, DP, D, 0, 5, p1, p2)
+    cost_q, v1_q = sgm_cuda.cost_fwd_down_plain(planes, HP, WP, DP, D, md, bs, p1, p2)
     assert torch.equal(cost, cost_q) and torch.equal(v1, v1_q)
+    cost_n, v1_n = sgm_cuda.cost_fwd_down(gl, gr, D, md, bs, 63, p1, p2, HP, WP, DP, False,
+                                          planes=planes)
+    assert torch.equal(cost_n, cost_q)
+    assert torch.equal(v1_n, sgm_cuda.cost_fwd_down_plain(planes, HP, WP, DP, D, md, bs, p1, p2,
+                                                          False)[1])
     for vertical in ("down", "up"):
         out = sgm_cuda.diag_accumulate(cost, v1.clone(), p1, p2, vertical)
         ref = sgm_cuda.diag_accumulate_plain(cost, v1.clone(), p1, p2, vertical)
         assert torch.equal(out, ref), vertical
     fwd = sgm_cuda.fwd_scan(cost, p1, p2)
     assert torch.equal(fwd, sgm_cuda.fwd_scan_plain(cost, p1, p2))
+    assert torch.equal(fwd, v1_n)
     down = sgm_cuda.down_accumulate(cost, fwd.clone(), p1, p2)
     assert torch.equal(down, sgm_cuda.down_accumulate_plain(cost, fwd.clone(), p1, p2))
     assert torch.equal(down, v1)
+
+
+def _k6_planes(n, m, axis, seed, clamp):
+    """WLS-like planes of one solve along `axis`; with `clamp`, one index
+    of every line has diag = wl = 0, so its den hits the 1e-12 clamp."""
+    g = torch.Generator().manual_seed(seed)
+    w_edge = torch.rand((n, m), generator=g) * 40.0
+    w_edge.select(axis, 0).zero_()
+    conf = (torch.rand((n, m), generator=g) > 0.3).to(torch.float32)
+    u = torch.rand((n, m), generator=g) * 120.0
+    wl, wr, diag, rhs = wls_cuda.solve_planes(w_edge, conf, u, 37.5, axis)
+    if clamp:
+        i = n // 2 if axis == 0 else m // 2
+        wl.select(axis, i).zero_()
+        diag.select(axis, i).zero_()
+    return wl, wr, diag, rhs
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("n,m,clamp", [(1, 7, False), (7, 1, False), (37, 65, False),
+                                       (37, 65, True), (1080, 1920, False),
+                                       (1088, 1920, True)])
+def test_k6_matches_plain_bitwise(dev, axis, n, m, clamp):
+    """K6 against its plain version on the card, bitwise: ragged tiles
+    (1080 = 33 x 32 + 24 lines or steps), single-line and single-step
+    planes, and lines whose den is clamped to 1e-12."""
+    planes = [t.to(dev) for t in _k6_planes(n, m, axis, n * 7 + m, clamp)]
+    if clamp:
+        i = n // 2 if axis == 0 else m // 2
+        den = planes[2].select(axis, i)
+        assert bool((den == 0).all())
+    before = wls_cuda.tridiag_solve.launches
+    out = wls_cuda.tridiag_solve(*planes, axis)
+    torch.cuda.synchronize()
+    assert wls_cuda.tridiag_solve.launches == before + 1
+    ref = wls_cuda.tridiag_solve_plain(*planes, axis)
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("num_directions,min_disparity", [(3, 0), (4, 4), (8, 0), (8, 6)])
