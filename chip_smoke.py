@@ -16,7 +16,8 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               rectification) through the two-pass warp (K1) twice, then the
               slice's frame and the BGR color stream's cloud; a line before
               it (headline_profile) gives the frame's device busy share and
-              kernel time by name under torch.profiler over 3 frames;
+              kernel time by name under torch.profiler over 3 frames, and
+              the device ms of the fused K4 and its LR check a frame;
   pipeline    one DepthPipeline.process at 1920x1080 on an in-memory rig
               with radial distortion and small rectifying rotations;
   accurate    the accurate() preset (SGM-8, P2 = 128 * 25) on the rectified
@@ -68,7 +69,9 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               where one PyTorch call computes the same or the yardstick
               function, that call's time (library_ms); K2 also its two
               stages (the walk, the forward scan) apart and its call
-              without the downward path, K6 each axis.
+              without the downward path, K6 each axis; K4 (v3 read only,
+              checked) and K12 bitwise, each also timed without the LR
+              check (no right view).
 Each path runs once with every launch counter at 0 before it, and the
 counts it leaves must be the path's kernels exactly. The frames record fps
 (median of 10 frames after 2 warm-ups), peak memory, RMSE against the same
@@ -280,6 +283,18 @@ def device_profile(fn, top=6, calls=1):
     return ({"wall_ms": round(wall / calls, 4), "device_ms": round(total / calls, 4),
              "busy_share": round(total / wall, 4), "kernels": len(dev_us),
              "top_ms": [[k[:100], round(t / 1e3 / calls, 4)] for k, t in ranked]}, dev_us)
+
+
+# the finalize kernels of csrc/sgm_vfinalize.cu, by a part of their symbol
+FINALIZE_KERNELS = {"K4 scan + finalize": "ScanFeed", "K12 finalize": "MemFeed",
+                    "K4 / K12 LR check": "lr_check_kernel"}
+
+
+def finalize_ms(dev_us, calls=1):
+    """Device ms a call of each finalize kernel, from device_profile's
+    microseconds by kernel name."""
+    return {k: round(sum(t for n, t in dev_us.items() if part in n) / 1e3 / calls, 4)
+            for k, part in FINALIZE_KERNELS.items()}
 
 
 def unit_cube_cloud(n, dev):
@@ -603,9 +618,10 @@ def main():
         headline, {"K1": 4, "K2": 1, "K3": 1, "K4": 1, "K6": 6})
     stats = frame_stats(*timed_frames(headline))
     # the frame's device busy share and kernel time by name, a frame
-    prof, _ = device_profile(lambda: [headline() for _ in range(PROFILE_FRAMES)], top=16,
-                             calls=PROFILE_FRAMES)
-    emit({"phase": "headline_profile", "frames": PROFILE_FRAMES, "per_frame": prof})
+    prof, dev_us = device_profile(lambda: [headline() for _ in range(PROFILE_FRAMES)], top=16,
+                                  calls=PROFILE_FRAMES)
+    emit({"phase": "headline_profile", "frames": PROFILE_FRAMES, "per_frame": prof,
+          "finalize_ms": finalize_ms(dev_us, PROFILE_FRAMES)})
     lg_p, rg_p = warp.remap_two_pass(raw_l, plan), warp.remap_two_pass(raw_r, plan)
     check(torch.equal(lg, lg_p) and torch.equal(rg, rg_p), "headline: warp differs from plain")
     u, vp = plain_disparity(lg_p, rg_p, m, w, 4)
@@ -718,7 +734,7 @@ def main():
         (d_s, v_s), launches = counted(sharded, want)
         live = torch.cuda.memory_allocated(dev)  # the peak below counts these too
         stats = frame_stats(*timed_frames(sharded))
-        prof, _ = device_profile(sharded, top=8)
+        prof, dev_us = device_profile(sharded, top=8)
         d_1, v_1 = sgm_cuda.sgm_disparity_cuda(gl, gr, **kw)
         check(torch.equal(d_s, d_1) and torch.equal(v_s, v_1),
               f"{name}: differs from the single-device kernel path")
@@ -726,7 +742,8 @@ def main():
               "shards": ROW_SHARDS, "transport": "in-process, one card: shards serialized",
               **stats, "single_device_sgm_ms": round(cuda_ms(
                   lambda: sgm_cuda.sgm_disparity_cuda(gl, gr, **kw), KERNEL_RUNS), 3),
-              "mem_live_before_bytes": live, "profiled_frame": prof, "launches": launches,
+              "mem_live_before_bytes": live, "profiled_frame": prof,
+              "finalize_ms": finalize_ms(dev_us), "launches": launches,
               "equal_to_single_device": True,
               "valid_fraction": round(float(v_s.float().mean()), 5)})
         all_launches[name] = launches
@@ -1211,20 +1228,25 @@ def main():
         bound_ms(cost_b + 2 * v1_b, 8 * n_el))
     del v1_k
 
-    # K4 (S is written over v3)
+    # K4 (v3 read only: S never reaches memory)
     args = (p1, p2, D, m.uniqueness_ratio, m.disp12_max_diff, m.subpixel, W, "up")
-    d_k, val_k = sgm_cuda.vfinalize(cost_k, v3_k.clone(), *args)
-    d_q, val_q = sgm_cuda.vfinalize_plain(cost_k, v3_k.clone(), *args)
-    check(torch.equal(val_k, val_q), "K4 valid differs from its plain version")
-    err = float((d_k - d_q).abs()[val_q].max())
-    check(err < 1e-4, f"K4 disparity differs from its plain version by {err}")
+    v3_in = v3_k.clone()
+    d_k, val_k = sgm_cuda.vfinalize(cost_k, v3_k, *args)
+    torch.cuda.synchronize()
+    check(torch.equal(v3_k, v3_in), "K4 changed v3")
+    del v3_in
+    d_q, val_q = sgm_cuda.vfinalize_plain(cost_k, v3_k, *args)
+    check(torch.equal(val_k, val_q) and torch.equal(d_k, d_q),
+          "K4 differs from its plain version")
+    # without the LR check: no right view, what the left view and the scan cost
+    no_lr = args[:4] + (-1,) + args[5:]
     row("K4 vfinalize", "recon3d_tpu_torch/csrc/sgm_vfinalize.cu",
-        "recon3d_tpu/depth/sgm_pallas.py:1135", slice_n["K4"], err,
-        cuda_ms(lambda v: sgm_cuda.vfinalize(cost_k, v, *args), KERNEL_RUNS,
-                lambda: (v3_k.clone(),)),
-        cuda_ms(lambda v: sgm_cuda.vfinalize_plain(cost_k, v, *args), PLAIN_RUNS,
-                lambda: (v3_k.clone(),)),
-        bound_ms(cost_b + v1_b + HP * WP * 8, 16 * n_el))
+        "recon3d_tpu/depth/sgm_pallas.py:1135", slice_n["K4"], float((d_k - d_q).abs().max()),
+        cuda_ms(lambda: sgm_cuda.vfinalize(cost_k, v3_k, *args), KERNEL_RUNS),
+        cuda_ms(lambda: sgm_cuda.vfinalize_plain(cost_k, v3_k, *args), PLAIN_RUNS),
+        bound_ms(cost_b + v1_b + HP * WP * 8, 16 * n_el),
+        ms_without_lr_check=round(cuda_ms(lambda: sgm_cuda.vfinalize(cost_k, v3_k, *no_lr),
+                                          KERNEL_RUNS), 4))
     del cost_k, v3_k, d_q, val_q
 
     # K5, one row per vertical direction, on the accurate frame's cost and
@@ -1313,12 +1335,15 @@ def main():
     d_q, val_q = sgm_cuda.wta_finalize_plain(S_l, *fin)
     check(torch.equal(val_k, val_q) and torch.equal(d_k, d_q),
           "K12 differs from its plain version")
+    fin_no_lr = fin[:2] + (-1,) + fin[3:]
     row("K12 wta_finalize", "recon3d_tpu_torch/csrc/sgm_vfinalize.cu",
         "recon3d_tpu/depth/sgm_pallas.py:537", all_launches["rowsharded"]["K12"],
         float((d_k - d_q).abs().max()), cuda_ms(lambda: sgm_cuda.wta_finalize(S_l, *fin),
                                                 KERNEL_RUNS),
         cuda_ms(lambda: sgm_cuda.wta_finalize_plain(S_l, *fin), PLAIN_RUNS),
-        bound_ms(el * 4 + d_k.numel() * 5, 8 * el), shard=list(S_l.shape))
+        bound_ms(el * 4 + d_k.numel() * 5, 8 * el), shard=list(S_l.shape),
+        ms_without_lr_check=round(cuda_ms(lambda: sgm_cuda.wta_finalize(S_l, *fin_no_lr),
+                                          KERNEL_RUNS), 4))
     del sh, S_l, d_k, val_k, d_q, val_q
     # K11 on the accurate frame's last shard, after its vertical relays
     sh = sgm_sharded.shard_volumes(gl, gr, row_mesh, D, 0, m8.block_size, m8.pre_filter_cap, p1,

@@ -39,8 +39,7 @@
 //
 // The stored costs are truncated to integers of at most 12800, so int16
 // holds them and every path sum after them is exact. sgm_scan.cu (K14)
-// still shares sgm_scan.cuh's launchers: launch_hscan with K2's forward
-// scan and K3, launch_vscan with K4.
+// still shares sgm_scan.cuh's launch_hscan with K2's forward scan and K3.
 #include <type_traits>
 
 #include "sgm_scan.cuh"

@@ -7,8 +7,8 @@
 // scan accumulated onto it (_mk_vscan_kernel(reverse=False), pallas_call at
 // sgm_pallas.py:1077). Both launchers are sgm_scan.cuh's warp-per-line
 // scans over a given cost volume: launch_hscan is also K2's forward scan
-// and K3's, launch_vscan also K4's vertical scan (K2 takes its downward
-// path in its cost walk).
+// and K3's (K2 takes its downward path in its cost walk, K4 its last
+// vertical path inside the finalize).
 //
 // Bound on the H100: bytes. The forward scan reads the int16 cost (535 MB at
 // 1080p / D = 128) and writes v1 (1.07 GB); the downward scan reads the cost
@@ -29,5 +29,5 @@ extern "C" int r3d_down_accumulate(const int16_t* cost, float* v, int HP, int WP
                                    float p1, float p2, cudaStream_t stream) {
   if ((DP != 128 && DP != 256) || HP % r3d::kScanChunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return r3d::launch_vscan(cost, v, HP, WP, DP, p1, p2, 0, stream);
+  return r3d::launch_vscan(cost, v, HP, WP, DP, p1, p2, stream);
 }

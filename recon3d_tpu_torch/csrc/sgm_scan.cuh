@@ -1,5 +1,6 @@
-// SGM path scans shared by the cost (K2), backward (K3) and vertical +
-// finalize (K4) kernels. Plain C interface, no PyTorch headers.
+// SGM path scans shared by the cost (K2), backward (K3), standalone (K14)
+// and vertical + finalize (K4, path_step only) kernels. Plain C interface, no
+// PyTorch headers.
 //
 // One warp owns one scanline (a row for the horizontal paths, a column for
 // the vertical ones) and walks it step by step with the carry in registers.
@@ -96,7 +97,7 @@ __device__ __forceinline__ void path_step(float (&carry)[K], const float (&c)[K]
 // One path over `lines` scanlines of `steps` steps each. Element (line, s)
 // of the (., ., D) volumes starts at line * line_stride + s * step_stride.
 // Writes out = L (acc == nullptr) or out = L + acc; out may alias acc (the
-// in-place accumulate of the backward and vertical paths).
+// in-place accumulate of the backward and downward paths).
 template <int K>
 __global__ void __launch_bounds__(128) path_scan_kernel(
     const int16_t* __restrict__ cost, const float* acc, float* out,
@@ -144,15 +145,15 @@ inline int launch_hscan(const int16_t* cost, const float* acc, float* out, int H
   return 0;
 }
 
-// Vertical path down every column of (HP, WP, DP) volumes, added onto acc.
+// Downward path along every column of (HP, WP, DP) volumes, added onto acc.
 inline int launch_vscan(const int16_t* cost, float* acc, int HP, int WP, int DP, float p1,
-                        float p2, int reverse, cudaStream_t stream) {
+                        float p2, cudaStream_t stream) {
   const int blocks = (WP * 32 + 127) / 128;
   const long long row = static_cast<long long>(WP) * DP;
   if (DP == 128)
-    path_scan_kernel<4><<<blocks, 128, 0, stream>>>(cost, acc, acc, WP, HP, DP, row, p1, p2, reverse);
+    path_scan_kernel<4><<<blocks, 128, 0, stream>>>(cost, acc, acc, WP, HP, DP, row, p1, p2, 0);
   else
-    path_scan_kernel<8><<<blocks, 128, 0, stream>>>(cost, acc, acc, WP, HP, DP, row, p1, p2, reverse);
+    path_scan_kernel<8><<<blocks, 128, 0, stream>>>(cost, acc, acc, WP, HP, DP, row, p1, p2, 0);
   R3D_LAUNCH_CHECK();
   return 0;
 }

@@ -6,7 +6,7 @@ counter:
   cost_fwd_down     K2  csrc/sgm_cost.cu       cost volume + L_fwd (+ L_down)
   bwd_accumulate    K3  csrc/sgm_bwd.cu        v3 = v1 + L_bwd, in place
   diag_accumulate   K5  csrc/sgm_diag.cu       v3 += a diagonal pair (sgm8)
-  vfinalize         K4  csrc/sgm_vfinalize.cu  S = v3 + L_up, WTA, LR check
+  vfinalize         K4  csrc/sgm_vfinalize.cu  S = v3 + L_up fused with the WTA and LR check
   fwd_scan          K14 csrc/sgm_scan.cu       v1 = L_fwd of a given cost
   down_accumulate   K14 csrc/sgm_scan.cu       v1 += L_down, in place
   vscan_carry       K10 csrc/sgm_carry.cu      acc += a shard's vertical path, carry in / out
@@ -458,9 +458,11 @@ def vfinalize_plain(cost_u16: torch.Tensor, v3: torch.Tensor, p1: float, p2: flo
                     num_disparities: int, uniqueness_ratio: int = 10, disp12_max_diff: int = 1,
                     do_subpixel: bool = True, w_real: int | None = None,
                     final_dir: str = "up") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K4 on any device (S written over v3, like the kernel)."""
+    """Plain version of K4 on any device: S = v3 + L_vert computed out of
+    place (v3 is left as it was, like the kernel), then finalized."""
     WP = cost_u16.shape[1]
-    S = _scan_plain(cost_u16, v3, v3, 0, final_dir == "up", float(p1) * 2.0, float(p2) * 2.0)
+    S = _scan_plain(cost_u16, v3, torch.empty_like(v3), 0, final_dir == "up", float(p1) * 2.0,
+                    float(p2) * 2.0)
     return _finalize_plain(S, num_disparities, WP if w_real is None else w_real,
                            uniqueness_ratio, disp12_max_diff, do_subpixel)
 
@@ -469,9 +471,10 @@ def vfinalize(cost_u16: torch.Tensor, v3: torch.Tensor, p1: float, p2: float,
               num_disparities: int, uniqueness_ratio: int = 10, disp12_max_diff: int = 1,
               do_subpixel: bool = True, w_real: int | None = None,
               final_dir: str = "up") -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4: S = v3 + the last vertical path (written over v3), then the WTA
-    finalize. Returns (disp_raw f32 in d-index units, valid bool), both
-    (HP, WP). disp12_max_diff < 0 skips the LR check."""
+    """K4: the last vertical path fused with the WTA finalize of S = v3 +
+    L_vert; S never reaches memory and v3 is read only. Returns (disp_raw
+    f32 in d-index units, valid bool), both (HP, WP). disp12_max_diff < 0
+    skips the LR check."""
     if final_dir not in ("up", "down"):
         raise ValueError(final_dir)
     _check_volumes(cost_u16, v3)
@@ -483,18 +486,24 @@ def vfinalize(cost_u16: torch.Tensor, v3: torch.Tensor, p1: float, p2: float,
     p1x, p2x = float(p1) * 2.0, float(p2) * 2.0
     reverse = final_dir == "up"
     dev = cost_u16.device
-    disp = torch.empty((HP, WP), dtype=torch.float32, device=dev)
-    valid, d0, valid0, dR = (torch.empty((HP, WP), dtype=torch.int32, device=dev)
-                             for _ in range(4))
+    disp, valid, plane = _finalize_outputs(HP, WP, dev)
     kernels.launch("r3d_vfinalize", dev, kernels.ptr(cost_u16), kernels.ptr(v3),
-                   kernels.ptr(disp), kernels.ptr(valid), kernels.ptr(d0), kernels.ptr(valid0),
-                   kernels.ptr(dR), HP, WP, DP, num_disparities, w_real, p1x, p2x,
-                   int(reverse), uniqueness_ratio, disp12_max_diff, int(do_subpixel))
+                   kernels.ptr(disp), kernels.ptr(valid), kernels.ptr(plane), HP, WP, DP,
+                   num_disparities, w_real, p1x, p2x, int(reverse), uniqueness_ratio,
+                   disp12_max_diff, int(do_subpixel))
     vfinalize.launches += 1
     return disp, valid > 0
 
 
 vfinalize.launches = 0
+
+
+def _finalize_outputs(HP: int, WP: int, dev: torch.device):
+    """disp (f32), valid (int32) and the right-view plane (int32 scratch)
+    that K4 and K12 write."""
+    disp = torch.empty((HP, WP), dtype=torch.float32, device=dev)
+    valid, plane = (torch.empty((HP, WP), dtype=torch.int32, device=dev) for _ in range(2))
+    return disp, valid, plane
 
 
 def wta_finalize_plain(S: torch.Tensor, num_disparities: int, uniqueness_ratio: int = 10,
@@ -521,13 +530,10 @@ def wta_finalize(S: torch.Tensor, num_disparities: int, uniqueness_ratio: int = 
                                   do_subpixel, w_real)
     w_real = WP if w_real is None else w_real
     dev = S.device
-    disp = torch.empty((HP, WP), dtype=torch.float32, device=dev)
-    valid, d0, valid0, dR = (torch.empty((HP, WP), dtype=torch.int32, device=dev)
-                             for _ in range(4))
+    disp, valid, plane = _finalize_outputs(HP, WP, dev)
     kernels.launch("r3d_wta_finalize", dev, kernels.ptr(S), kernels.ptr(disp),
-                   kernels.ptr(valid), kernels.ptr(d0), kernels.ptr(valid0), kernels.ptr(dR),
-                   HP, WP, DP, num_disparities, w_real, uniqueness_ratio, disp12_max_diff,
-                   int(do_subpixel))
+                   kernels.ptr(valid), kernels.ptr(plane), HP, WP, DP, num_disparities,
+                   w_real, uniqueness_ratio, disp12_max_diff, int(do_subpixel))
     wta_finalize.launches += 1
     return disp, valid > 0
 
@@ -543,8 +549,10 @@ def aggregate_and_finalize(cost_u16: torch.Tensor, p1: float, p2: float, num_dis
     """Path aggregation + finalize on a padded cost volume
     (sgm_pallas.aggregate_and_finalize): backward path (K3), the diagonal
     pairs (K5, with_diag), then the last vertical path and finalize (K4).
-    v1 from cost_fwd_down is consumed in place (it ends holding S); without
-    it the forward (and, for "up", downward) paths run here (K14).
+    v1 from cost_fwd_down is consumed in place (it ends holding v3, the sum
+    of every path but the last vertical one, which K4 adds inside its
+    finalize); without it the forward (and, for "up", downward) paths run
+    here (K14).
     final_dir "up" completes 4-direction mode (v1 holds L_fwd + L_down),
     "down" 3-direction mode (v1 holds L_fwd); with_diag (8-direction mode)
     needs "up"."""

@@ -36,7 +36,7 @@ SIGNATURES = {
     "r3d_cost_walk": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
     "r3d_cost_fwd": [_P, _P, _I, _I, _I, _F, _F, _I, _P],
     "r3d_bwd_accumulate": [_P, _P, _I, _I, _I, _F, _F, _P],
-    "r3d_vfinalize": [_P] * 7 + [_I] * 5 + [_F, _F] + [_I] * 4 + [_P],
+    "r3d_vfinalize": [_P] * 5 + [_I] * 5 + [_F, _F] + [_I] * 4 + [_P],
     "r3d_tridiag": [_P] * 7 + [_I, _I, _I, _P],
     "r3d_resample": [_P] * 5 + [_I] * 4 + [_P],
     "r3d_diag_accumulate": [_P, _P, _I, _I, _I, _F, _F, _I, _P],
@@ -47,7 +47,7 @@ SIGNATURES = {
     "r3d_project_sample": [_P] * 4 + [_L, _I, _I, _I, _P],
     "r3d_vscan_carry": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _I, _P],
     "r3d_diag_carry": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _I, _P],
-    "r3d_wta_finalize": [_P] * 6 + [_I] * 8 + [_P],
+    "r3d_wta_finalize": [_P] * 4 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

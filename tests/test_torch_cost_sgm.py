@@ -130,7 +130,8 @@ def test_bwd_accumulate_exact(case):
 
 def test_vfinalize_matches_wta_finalize(case):
     """K4: S = v3 + L_up, then the finalize against the JAX finalize kernel
-    (wta_finalize, interpret mode, the same _finalize_body)."""
+    (wta_finalize, interpret mode, the same _finalize_body). v3 is read
+    only; the plain upward scan onto it gives the S the JAX side finalizes."""
     c = case
     cost_f = jnp.asarray(c["cost"].astype(np.float32))
     j = c["j"]
@@ -139,12 +140,32 @@ def test_vfinalize_matches_wta_finalize(case):
     S = v3 + np.asarray(jsgm._scan_dir(cost_f, 0, True, p1x, p2x))
     d_j, v_j = sgm_pallas.wta_finalize(jnp.asarray(S), j.num_disparities, j.uniqueness_ratio,
                                        j.disp12_max_diff, True, c["W"], interpret=True)
-    v3_t = torch.tensor(v3)
-    d_t, v_t = sgm_cuda.vfinalize(torch.tensor(c["cost"].astype(np.int16)), v3_t, c["p1"],
-                                  c["p2"], c["D"], c["ur"], c["md"], True, c["W"], "up")
-    np.testing.assert_array_equal(v3_t.numpy(), S)  # S written over v3
+    cost_t, v3_t = torch.tensor(c["cost"].astype(np.int16)), torch.tensor(v3)
+    d_t, v_t = sgm_cuda.vfinalize(cost_t, v3_t, c["p1"], c["p2"], c["D"], c["ur"], c["md"], True,
+                                  c["W"], "up")
+    np.testing.assert_array_equal(v3_t.numpy(), v3)  # v3 left as it was
+    S_t = sgm_cuda._scan_plain(cost_t, v3_t, torch.empty_like(v3_t), 0, True, 2.0 * c["p1"],
+                               2.0 * c["p2"])
+    np.testing.assert_array_equal(S_t.numpy(), S)
     np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
     assert np.abs(d_t.numpy() - np.asarray(d_j))[np.asarray(v_j)].max() < 1e-4
+
+
+@pytest.mark.parametrize("final_dir", ["up", "down"])
+def test_vfinalize_is_the_finalize_of_v3_plus_the_vertical_path(case, final_dir):
+    """K4's plain version equals K12's on S = v3 + L_vert, the vertical path
+    scanned alone, and leaves v3 as it was."""
+    c = case
+    cost = torch.tensor(c["cost"].astype(np.int16))
+    v3 = sgm_cuda.bwd_accumulate_plain(cost, torch.tensor(c["v1"]), c["p1"], c["p2"])
+    v3_in = v3.clone()
+    L = sgm_cuda._scan_plain(cost, None, torch.empty_like(v3), 0, final_dir == "up",
+                             2.0 * c["p1"], 2.0 * c["p2"])
+    args = (c["D"], c["ur"], c["md"], True, c["W"])
+    d_k, v_k = sgm_cuda.vfinalize_plain(cost, v3, c["p1"], c["p2"], *args, final_dir)
+    d_q, v_q = sgm_cuda.wta_finalize_plain(v3 + L, *args)
+    assert torch.equal(v3, v3_in)
+    assert torch.equal(v_k, v_q) and torch.equal(d_k, d_q) and bool(v_q.any())
 
 
 def test_aggregate_and_finalize_matches_pallas(case):

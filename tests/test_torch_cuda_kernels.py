@@ -8,7 +8,9 @@ itself on the CPU, backend 'auto' on the card, K7 (bitwise, overflow
 included) and K8 (bitwise, both variants) on small grids, the grid
 normals on the card against the CPU, K9 on any shape, the fusion and
 meshing slice on the card against the CPU (bitwise), K10-K12 on small
-shards (both directions, dead rows below h_real), the row-sharded frame on
+shards (both directions, dead rows below h_real), K4 and K12 bitwise over
+their options (D = 16 / 160 / 256, flat, clamped and 320-row volumes), the
+row-sharded frame on
 the card against the single-device kernel path and batched_depth against
 compute_disparity. A CUDA kernel has no
 CPU mode, so these tests are marked `cuda` and skip without a card. On a
@@ -20,6 +22,8 @@ All SGM arithmetic is integer-valued f32 and the warp reproduces one
 rounding per operation, so kernel and plain version agree bitwise; the
 disparity bar is the SGM one, valid equal and |delta| < 1e-4.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -345,6 +349,62 @@ def test_k10_k11_k12_match_plain(dev, H, W, D):
     d_q, v_q = sgm_cuda.wta_finalize(S.cpu(), D, 10, 1, True, w_real=W)
     assert torch.equal(S, S_in)
     assert torch.equal(v_k.cpu(), v_q) and torch.equal(d_k.cpu(), d_q)
+
+
+def _k4_volumes(case, dev):
+    """(cost, v3, w_real, D, P2) of one K4 / K12 case on the card (P1 200)."""
+    if case == "flat":  # zero cost and v3: S is 0 everywhere, every d ties
+        return (torch.zeros((64, 256, 128), dtype=torch.int16, device=dev),
+                torch.zeros((64, 256, 128), device=dev), 200, 16, 3200.0)
+    # P2 3200 = 128 * 5^2, accurate()'s; 2400 = 96 * 5^2, tuned()'s
+    H, W, D, p2, dirs = {"D16": (40, 200, 16, 3200.0, 4), "D160": (40, 200, 160, 3200.0, 4),
+                         "D256": (24, 200, 256, 3200.0, 4), "clamp": (24, 100, 16, 3200.0, 8),
+                         "shard320": (320, 1900, 128, 2400.0, 4)}[case]
+    gl, gr = (torch.tensor(a, device=dev) for a in _pair(H, W, seed=H + D))
+    HP, WP, DP = sgm_cuda.padded_shape(H, W, D)
+    cost, v = sgm_cuda.cost_fwd_down(gl, gr, D, 0, 5, 63, 200.0, p2, HP, WP, DP)
+    v = sgm_cuda.bwd_accumulate(cost, v, 200.0, p2)
+    if dirs == 8:
+        for vertical in ("down", "up"):
+            v = sgm_cuda.diag_accumulate(cost, v, 200.0, p2, vertical)
+    return cost, v, W, D, p2
+
+
+@pytest.mark.parametrize("final_dir", ["up", "down"])
+@pytest.mark.parametrize("case", ["D16", "D160", "D256", "flat", "clamp", "shard320"])
+def test_k4_k12_match_plain_bitwise(dev, case, final_dir):
+    """K4 against vfinalize_plain and K12 against wta_finalize_plain on
+    S = v3 + L_vert, torch.equal on disp and valid, for uniqueness 0 / 10,
+    disp12_max_diff -1 / 0 / 1 and subpixel off / on: DP = 128 and 256 with
+    d_real < DP, w_real < WP, a flat S (d0 = 0 by the packed tie rule), an
+    8-direction S past the pack clamp and a 320-row shard. K4 leaves v3 as
+    it was; each wrapper counts one launch a call."""
+    cost, v3, w_real, D, p2 = _k4_volumes(case, dev)
+    p1 = 200.0
+    v3_in = v3.clone()
+    S = sgm_cuda._scan_plain(cost, v3, torch.empty_like(v3), 0, final_dir == "up", 2 * p1,
+                             2 * p2)
+    S_in = S.clone()
+    if case == "flat":
+        assert bool((S == 0).all())
+    if case == "clamp" and final_dir == "up":  # the 8-direction S
+        assert float(S.max()) > 2.0 ** 24 / 128 - 1
+    for ur, md, sub in itertools.product((0, 10), (-1, 0, 1), (False, True)):
+        args = (D, ur, md, sub, w_real)
+        before = sgm_cuda.vfinalize.launches
+        d_k, v_k = sgm_cuda.vfinalize(cost, v3, p1, p2, *args, final_dir)
+        torch.cuda.synchronize()
+        assert sgm_cuda.vfinalize.launches == before + 1
+        assert torch.equal(v3, v3_in)
+        d_q, v_q = sgm_cuda.vfinalize_plain(cost, v3, p1, p2, *args, final_dir)
+        assert torch.equal(v_k, v_q) and torch.equal(d_k, d_q), ("K4", ur, md, sub)
+        before = sgm_cuda.wta_finalize.launches
+        d_k, v_k = sgm_cuda.wta_finalize(S, *args)
+        torch.cuda.synchronize()
+        assert sgm_cuda.wta_finalize.launches == before + 1
+        assert torch.equal(S, S_in)
+        d_q, v_q = sgm_cuda.wta_finalize_plain(S, *args)
+        assert torch.equal(v_k, v_q) and torch.equal(d_k, d_q), ("K12", ur, md, sub)
 
 
 @pytest.mark.parametrize("num_directions,H", [(3, 128), (4, 104), (8, 104)])

@@ -71,8 +71,9 @@ def test_sgm8_kernel_path_matches_pallas(H, W, D, bs):
 def test_sgm8_reaches_the_pack_clamp_and_matches_pallas():
     """With P2 = 128 * w^2 the 8-direction sum S exceeds K4's 2^24 / PK - 1
     inside the image (the all-invalid lanes of the left band), so the clamp
-    decides there; port and JAX must clamp alike. The port's finalize writes
-    S over v3, which shows where it exceeds."""
+    decides there; port and JAX must clamp alike. K4 never stores S, so the
+    plain scans (K3, K5 both ways, the upward path) build it here to show
+    where it exceeds."""
     H, W, D, bs = 24, 100, 16, 5
     gl, gr = _pair(H, W, seed=3)
     j, t = _accurate(D, bs)
@@ -80,9 +81,13 @@ def test_sgm8_reaches_the_pack_clamp_and_matches_pallas():
     HP, WP, DP = sgm_cuda.padded_shape(H, W, D)
     cost, v = sgm_cuda.cost_fwd_down(torch.tensor(gl), torch.tensor(gr), D, 0, bs,
                                      t.pre_filter_cap, p1, p2, HP, WP, DP)
+    S = sgm_cuda.bwd_accumulate_plain(cost, v.clone(), p1, p2)
+    for vertical in ("down", "up"):
+        sgm_cuda.diag_accumulate_plain(cost, S, p1, p2, vertical)
+    S = sgm_cuda._scan_plain(cost, S, S, 0, True, 2.0 * p1, 2.0 * p2)
+    assert float(S[:H, :W, :D].max()) > PACK_CLAMP
     args = (t.uniqueness_ratio, t.disp12_max_diff, True, W)
     d_t, v_t = sgm_cuda.aggregate_and_finalize(cost, p1, p2, D, *args, v1=v, with_diag=True)
-    assert float(v[:H, :W, :D].max()) > PACK_CLAMP
 
     cost_j, v1_j = sgm_pallas.cost_fwd_down(jnp.asarray(gl), jnp.asarray(gr), D, 0, bs,
                                             j.pre_filter_cap, float(j.p1()), float(j.p2()),
