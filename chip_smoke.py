@@ -23,7 +23,8 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
   accurate    the accurate() preset (SGM-8, P2 = 128 * 25) on the rectified
               pair;
   standalone  aggregate_and_finalize without v1, whose forward and downward
-              paths then run as the standalone scans (K14);
+              paths then run as the standalone scans (K14), against the call
+              with v1 (left as it was) and its fuse_bwd variant (K3 then K4);
   rowsharded  the rectified pair through sgm_disparity_cuda_rowsharded on a
               4-shard in-process row mesh on this one card (1080 rows pad to
               1088: 272 a shard, the last one's final 8 dead): K2, K13, the
@@ -74,7 +75,10 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               check (no right view).
 Each path runs once with every launch counter at 0 before it, and the
 counts it leaves must be the path's kernels exactly. The frames record fps
-(median of 10 frames after 2 warm-ups), peak memory, RMSE against the same
+(median of 10 frames after 2 warm-ups), peak memory (a single-device frame
+may add at most its cost and path volumes and half a path volume to what
+was live before it, and the row-sharded aggregation a few carry planes:
+no volume is copied), RMSE against the same
 frame built from the plain versions on the card, and RMSE against the
 analytic disparity under sanity bars. Then the card's nvidia-smi line and,
 last, the result line. Any failed comparison or exception exits nonzero
@@ -474,23 +478,32 @@ def main():
 
     def timed_frames(frame, runs=FRAMES, warmup=WARMUP):
         """Host-clock ms of `runs` frames after `warmup`, each ending in a
-        synchronize, and the peak device memory of those frames."""
+        synchronize, the peak device memory of those frames and the bytes
+        live before them."""
         for _ in range(warmup):
             frame()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
         ms = []
         for _ in range(runs):
             t0 = time.perf_counter()
             frame()
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-        return ms, torch.cuda.max_memory_allocated(dev)
+        return ms, torch.cuda.max_memory_allocated(dev), live
 
-    def frame_stats(ms, peak):
+    def frame_stats(ms, peak, live, what=None):
+        """The frame times and memory; a single-device frame (`what`) may add
+        at most its cost and path volumes and half a path volume to what was
+        live before it: a copy of a volume would exceed that."""
         med = statistics.median(ms)
+        if what is not None:
+            check(peak - live < cost_b + v1_b + v1_b // 2,
+                  f"{what}: peak {peak - live} B over the live bytes: a volume was copied")
         return {"fps": round(1e3 / med, 3), "frame_ms_median": round(med, 3),
-                "frame_ms": [round(t, 3) for t in ms], "peak_mem_bytes": peak}
+                "frame_ms": [round(t, 3) for t in ms], "peak_mem_bytes": peak,
+                "mem_live_before_bytes": live, "frame_extra_peak_bytes": peak - live}
 
     # ---- the frame's state, carried across as convert.py receives the JAX
     # package's bench configuration (backend 'pallas' on the TPU)
@@ -507,6 +520,7 @@ def main():
     color_rgb = color_bgr.flip(-1).to(torch.float32) / 255.0
     p1, p2 = float(m.p1()), float(m.p2())
     HP, WP, DP = sgm_cuda.padded_shape(H, W, D)
+    cost_b, v1_b = HP * WP * DP * 2, HP * WP * DP * 4  # the frame's int16 cost, f32 path volume
     dt = torch.tensor(disp_true, device=dev)
     # "core" crops an 8 px border and the left D band no match can reach
     core = torch.zeros((H, W), dtype=torch.bool, device=dev)
@@ -563,7 +577,7 @@ def main():
         return disp, valid, depth, pc
 
     (disp, valid, depth, pc), launches = counted(frame, {"K2": 1, "K3": 1, "K4": 1, "K6": 6})
-    stats = frame_stats(*timed_frames(frame))
+    stats = frame_stats(*timed_frames(frame), "slice")
     u, vp = plain_disparity(gl, gr, m, w, 4)
     pc_p = backproject_disparity(u, st.Q, color=color_rgb, assume_standard_q=True)
 
@@ -616,7 +630,7 @@ def main():
 
     (lg, rg, disp, valid, pc), launches = counted(
         headline, {"K1": 4, "K2": 1, "K3": 1, "K4": 1, "K6": 6})
-    stats = frame_stats(*timed_frames(headline))
+    stats = frame_stats(*timed_frames(headline), "headline")
     # the frame's device busy share and kernel time by name, a frame
     prof, dev_us = device_profile(lambda: [headline() for _ in range(PROFILE_FRAMES)], top=16,
                                   calls=PROFILE_FRAMES)
@@ -668,7 +682,7 @@ def main():
     rmse_pipe = against(p_disp, p_disp > 0, u, u > 0, "pipeline")
     check(torch.allclose(p_depth, disparity_to_depth(u, pipe.Q), rtol=1e-3, atol=1e-4),
           "pipeline: depth differs from the plain frame")
-    stats = frame_stats(*timed_frames(lambda: pipe.process(raw_l, raw_r)))
+    stats = frame_stats(*timed_frames(lambda: pipe.process(raw_l, raw_r)), "pipeline")
     emit({"phase": "pipeline", "shape": [H, W, D], **stats, "init_s": round(init_s, 3),
           "launches": launches,
           "plan_shift_bounds": [pipe.plans[0].v_resid_bound, pipe.plans[0].h_resid_bound,
@@ -690,7 +704,7 @@ def main():
 
     (disp, valid, pc), launches = counted(
         accurate, {"K2": 1, "K3": 1, "K5": 2, "K4": 1, "K6": 6})
-    stats = frame_stats(*timed_frames(accurate))
+    stats = frame_stats(*timed_frames(accurate), "accurate")
     u, vp = plain_disparity(gl, gr, m8, w, 8)
     rmse_plain = against(disp, valid, u, u > 0, "accurate")
     d_sgm, v_sgm = sgm_cuda.sgm_disparity_cuda(gl, gr, **sgm_kw(m8, 8))
@@ -712,13 +726,24 @@ def main():
     fin = (p1, p2, D, m.uniqueness_ratio, m.disp12_max_diff, m.subpixel, W)
     (d_s, v_s), launches = counted(lambda: sgm_cuda.aggregate_and_finalize(cost_k, *fin),
                                    {"K14 fwd": 1, "K14 down": 1, "K3": 1, "K4": 1})
-    d_f, v_f = sgm_cuda.aggregate_and_finalize(cost_k, *fin, v1=v1_k.clone())
+    v1_in = v1_k.clone()
+    d_f, v_f = sgm_cuda.aggregate_and_finalize(cost_k, *fin, v1=v1_k)
+    check(torch.equal(v1_k, v1_in), "standalone: aggregate_and_finalize changed the caller's v1")
+    del v1_in
     check(torch.equal(v_s, v_f) and torch.equal(d_s[v_f], d_f[v_f]),
           "standalone: differs from the fused route")
-    emit({"phase": "standalone", "launches": launches,
+    # the JAX package's fuse_bwd variant: K3 then K4, bitwise the same
+    (d_b, v_b), launches_bwd = counted(
+        lambda: sgm_cuda.aggregate_and_finalize(cost_k, *fin, v1=v1_k, fuse_bwd=True),
+        {"K3": 1, "K4": 1})
+    check(torch.equal(v_b, v_f) and torch.equal(d_b, d_f),
+          "standalone: fuse_bwd differs from fuse_bwd=False")
+    emit({"phase": "standalone", "launches": launches, "fuse_bwd_launches": launches_bwd,
+          "fuse_bwd_bitwise": True, "v1_left_intact": True,
           "valid_fraction": round(float(v_s.float().mean()), 5)})
     all_launches["standalone"] = launches
-    del d_s, v_s, d_f, v_f
+    all_launches["standalone_fuse_bwd"] = launches_bwd
+    del d_s, v_s, d_f, v_f, d_b, v_b
 
     # ---- rowsharded, rowsharded_accurate: one frame's rows over a 4-shard
     # in-process mesh on this card, against the single-device kernel path
@@ -732,17 +757,30 @@ def main():
             return sgm_sharded.sgm_disparity_cuda_rowsharded(gl, gr, row_mesh, **kw)
 
         (d_s, v_s), launches = counted(sharded, want)
-        live = torch.cuda.memory_allocated(dev)  # the peak below counts these too
         stats = frame_stats(*timed_frames(sharded))
         prof, dev_us = device_profile(sharded, top=8)
         d_1, v_1 = sgm_cuda.sgm_disparity_cuda(gl, gr, **kw)
         check(torch.equal(d_s, d_1) and torch.equal(v_s, v_1),
               f"{name}: differs from the single-device kernel path")
+        # the relays work in place on the shards' volumes: aggregating adds
+        # no more than carry planes to what the shards hold
+        sh = sgm_sharded.shard_volumes(gl, gr, row_mesh, D, 0, mc.block_size, mc.pre_filter_cap,
+                                       p1, float(mc.p2()))
+        torch.cuda.synchronize()
+        agg_live = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        sgm_sharded.aggregate(sh, p1, float(mc.p2()), ndir)
+        torch.cuda.synchronize()
+        agg_extra = torch.cuda.max_memory_allocated(dev) - agg_live
+        check(agg_extra < sh.S[0].numel() * 4 // 2,
+              f"{name}: aggregating the shards added {agg_extra} B: a volume was copied")
+        del sh
         emit({"phase": name, "shape": [H, W, D], "mode": mc.mode, "p2": mc.p2(),
               "shards": ROW_SHARDS, "transport": "in-process, one card: shards serialized",
               **stats, "single_device_sgm_ms": round(cuda_ms(
                   lambda: sgm_cuda.sgm_disparity_cuda(gl, gr, **kw), KERNEL_RUNS), 3),
-              "mem_live_before_bytes": live, "profiled_frame": prof,
+              "aggregate_extra_peak_bytes": agg_extra,
+              "profiled_frame": prof,
               "finalize_ms": finalize_ms(dev_us), "launches": launches,
               "equal_to_single_device": True,
               "valid_fraction": round(float(v_s.float().mean()), 5)})
@@ -758,8 +796,7 @@ def main():
     batched = lambda: pbatch.batched_depth(ls, rs, frame_mesh, m, w)  # noqa: E731
     (b_disp, b_valid, b_mean), launches = counted(
         batched, {"K2": BATCH, "K3": BATCH, "K4": BATCH, "K6": 6 * BATCH})
-    live = torch.cuda.memory_allocated(dev)
-    ms, peak = timed_frames(batched)
+    ms, peak, live = timed_frames(batched)
     for k in range(BATCH):
         d_1, v_1 = compute_disparity(ls[k], rs[k], m, w, True)
         check(torch.equal(b_disp[k], d_1) and torch.equal(b_valid[k], v_1),
@@ -826,7 +863,7 @@ def main():
         staged[:] = out
 
     stage_ms, staged = [], []
-    scan_ms, scan_peak = timed_frames(scan_post_staged, SCAN_RUNS, 1)
+    scan_ms, scan_peak, _ = timed_frames(scan_post_staged, SCAN_RUNS, 1)
     stage_ms = stage_ms[1:]  # without the warm-up's
     n_pc = int(pc.valid.sum())
     check(pc.capacity == SCAN_W * SCAN_H and q.capacity == min(staged[1].capacity, pcfg.capacity)
@@ -890,7 +927,7 @@ def main():
     n1m = lambda: normals.estimate_normals(pc1, max_nn=30, **nkw)  # noqa: E731
     o1, launches = counted(n1m, {"K7": 1, "K8": 1})
     all_launches["normals_1m"] = launches
-    ms_1m, peak_1m = timed_frames(n1m, c1m["runs"], 1)
+    ms_1m, peak_1m, _ = timed_frames(n1m, c1m["runs"], 1)
     G1, C1 = c1m["grid_size"], c1m["cell_capacity"]
     pk_1, slot_1, overflow_1 = grid_knn_cuda.bin_points_packed_cuda(pc1.points, pc1.valid,
                                                                     c1m["radius"], G1, C1)
@@ -929,7 +966,7 @@ def main():
     unit = (o10.normals.norm(dim=1) - 1.0).abs() < 1e-4
     check(bool(torch.isfinite(o10.normals).all()) and float(unit.float().mean()) > 0.99,
           "normals_10m: normals not finite unit vectors")
-    ms_10, peak_10 = timed_frames(n10, c10["runs"], 0)
+    ms_10, peak_10, _ = timed_frames(n10, c10["runs"], 0)
     emit({"phase": "normals_10m", "n": c10["n"], "radius": c10["radius"],
           "grid": [c10["grid_size"], c10["cell_capacity"]], "launches": launches,
           "ms_median": round(statistics.median(ms_10), 3), "ms": [round(t, 3) for t in ms_10],
@@ -944,7 +981,7 @@ def main():
     n_vox = int(vout.valid.sum())
     check(0 < n_vox <= 21 ** 3 and vout.capacity == cv["capacity"],
           f"voxel_10m: {n_vox} voxels in a buffer of {vout.capacity}")
-    ms_v, peak_v = timed_frames(v10, cv["runs"], 1)
+    ms_v, peak_v, _ = timed_frames(v10, cv["runs"], 1)
     emit({"phase": "voxel_10m", "n": cv["n"], "voxel_size": cv["voxel_size"],
           "capacity": cv["capacity"], "voxels": n_vox,
           "ms_median": round(statistics.median(ms_v), 3), "ms": [round(t, 3) for t in ms_v],
@@ -1093,7 +1130,6 @@ def main():
     # ---- kernels against their plain versions, on their paths' inputs
     rows = []
     n_el = HP * WP * DP
-    cost_b, v1_b = HP * WP * DP * 2, HP * WP * DP * 4
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None,
             **extra):
@@ -1251,7 +1287,9 @@ def main():
 
     # K5, one row per vertical direction, on the accurate frame's cost and
     # v3 (P2 = 3200). Each 8-direction frame adds the downward pair once and
-    # the upward pair once, so a direction's count is half of K5's.
+    # the upward pair once, so a direction's count is half of K5's. The
+    # bound is one pass over v (both paths of the pair together); the
+    # two-pass floor is that of a design that makes a pass a direction.
     p2_8 = float(m8.p2())
     cost8, v8 = sgm_cuda.cost_fwd_down(gl, gr, D, 0, m8.block_size, m8.pre_filter_cap, p1,
                                        p2_8, HP, WP, DP, True, planes=planes)
@@ -1267,7 +1305,8 @@ def main():
                     KERNEL_RUNS, lambda: (v8.clone(),)),
             cuda_ms(lambda v: sgm_cuda.diag_accumulate_plain(cost8, v, p1, p2_8, vertical),
                     PLAIN_RUNS, lambda: (v8.clone(),)),
-            bound_ms(cost_b + 2 * v1_b, 2 * 9 * n_el))
+            bound_ms(cost_b + 2 * v1_b, 2 * 9 * n_el),
+            two_pass_floor_ms=round(bound_ms(2 * (cost_b + 2 * v1_b), 0)[0], 4))
         del out_k, out_q
     del cost8, v8
 
@@ -1296,39 +1335,51 @@ def main():
     del v1_l, v3_k, v3_q
 
     def relayed_carry(shards, scan, planes, mc):
-        """The carry the shards before the last relay down to it."""
+        """The carry the shards before the last relay down to it (the public
+        mirror, which leaves the shards' volumes as they are)."""
         carry = torch.zeros(planes + tuple(cost_l.shape[1:]), device=dev)
         for k in range(last):
-            _, carry = scan(shards.cost[k], shards.S[k].clone(), carry, p1, float(mc.p2()), False,
+            _, carry = scan(shards.cost[k], shards.S[k], carry, p1, float(mc.p2()), False,
                             shards.h_real(k))
         return carry
 
-    def carry_rows(name, shards, scan, plain, planes, mc, launches, replaces):
+    def carry_rows(name, shards, scan, inplace, plain, planes, mc, launches, replaces, source,
+                   two_pass=False):
+        """A row a direction: the public mirror checked against the plain
+        version (the shard's volume left as it was), the in-place entry the
+        relay runs timed on a fresh copy made outside the timing."""
         carry = relayed_carry(shards, scan, planes, mc)
         S_l, p2_ = shards.S[last], float(mc.p2())
+        S_in = S_l.clone()
         for reverse in (False, True):
-            out_k, cout_k = scan(shards.cost[last], S_l.clone(), carry, p1, p2_, reverse, h_l)
+            out_k, cout_k = scan(shards.cost[last], S_l, carry, p1, p2_, reverse, h_l)
             out_q, cout_q = plain(shards.cost[last], S_l.clone(), carry, p1, p2_, reverse, h_l)
             check(torch.equal(out_k, out_q) and torch.equal(cout_k, cout_q),
                   f"{name} {reverse} differs from its plain version")
-            row(f"{name} {'up' if reverse else 'down'}", "recon3d_tpu_torch/csrc/sgm_carry.cu",
-                replaces, launches, max(float((out_k - out_q).abs().max()),
-                                        float((cout_k - cout_q).abs().max())),
-                cuda_ms(lambda v: scan(shards.cost[last], v, carry, p1, p2_, reverse, h_l),
+            check(torch.equal(S_l, S_in), f"{name} changed the caller's acc")
+            extra = {}
+            if two_pass:
+                extra["two_pass_floor_ms"] = round(
+                    bound_ms(2 * shard_b + 2 * carry.numel() * 4, 0)[0], 4)
+            row(f"{name} {'up' if reverse else 'down'}", source, replaces, launches,
+                max(float((out_k - out_q).abs().max()), float((cout_k - cout_q).abs().max())),
+                cuda_ms(lambda v: inplace(shards.cost[last], v, carry, p1, p2_, reverse, h_l),
                         KERNEL_RUNS, lambda: (S_l.clone(),)),
                 cuda_ms(lambda v: plain(shards.cost[last], v, carry, p1, p2_, reverse, h_l),
                         PLAIN_RUNS, lambda: (S_l.clone(),)),
                 bound_ms(shard_b + 2 * carry.numel() * 4, 9 * (planes[0] if planes else 1) * el),
-                shard=list(cost_l.shape), h_real=h_l, carry_max=float(carry.max()))
+                shard=list(cost_l.shape), h_real=h_l, carry_max=float(carry.max()), **extra)
             del out_k, out_q, cout_k, cout_q
+        del S_in
 
     for k in range(ROW_SHARDS):
         sgm_sharded.bwd_accumulate_shard(sh.cost[k], sh.S[k], p1, p2)
-    carry_rows("K10 vscan_carry", sh, sgm_cuda.vscan_carry, sgm_cuda.vscan_carry_plain, (), m,
-               all_launches["rowsharded"]["K10"], "recon3d_tpu/depth/sgm_pallas.py:385")
+    carry_rows("K10 vscan_carry", sh, sgm_cuda.vscan_carry, sgm_cuda._vscan_carry_,
+               sgm_cuda.vscan_carry_plain, (), m, all_launches["rowsharded"]["K10"],
+               "recon3d_tpu/depth/sgm_pallas.py:385", "recon3d_tpu_torch/csrc/sgm_carry.cu")
     # K12 on the last shard's S after the frame's two vertical relays
-    sgm_sharded.relay(sh, sgm_cuda.vscan_carry, (), False, p1, p2)
-    sgm_sharded.relay(sh, sgm_cuda.vscan_carry, (), True, p1, p2)
+    sgm_sharded.relay(sh, sgm_cuda._vscan_carry_, (), False, p1, p2)
+    sgm_sharded.relay(sh, sgm_cuda._vscan_carry_, (), True, p1, p2)
     S_l = sh.S[last]
     fin = (D, m.uniqueness_ratio, m.disp12_max_diff, m.subpixel, W)
     d_k, val_k = sgm_cuda.wta_finalize(S_l, *fin)
@@ -1350,10 +1401,12 @@ def main():
                                    p2_8)
     for k in range(ROW_SHARDS):
         sgm_sharded.bwd_accumulate_shard(sh.cost[k], sh.S[k], p1, p2_8)
-    sgm_sharded.relay(sh, sgm_cuda.vscan_carry, (), False, p1, p2_8)
-    sgm_sharded.relay(sh, sgm_cuda.vscan_carry, (), True, p1, p2_8)
-    carry_rows("K11 diag_carry", sh, sgm_cuda.diag_carry, sgm_cuda.diag_carry_plain, (2,), m8,
-               all_launches["rowsharded_accurate"]["K11"], "recon3d_tpu/depth/sgm_pallas.py:343")
+    sgm_sharded.relay(sh, sgm_cuda._vscan_carry_, (), False, p1, p2_8)
+    sgm_sharded.relay(sh, sgm_cuda._vscan_carry_, (), True, p1, p2_8)
+    carry_rows("K11 diag_carry", sh, sgm_cuda.diag_carry, sgm_cuda._diag_carry_,
+               sgm_cuda.diag_carry_plain, (2,), m8, all_launches["rowsharded_accurate"]["K11"],
+               "recon3d_tpu/depth/sgm_pallas.py:343", "recon3d_tpu_torch/csrc/sgm_diag.cu",
+               two_pass=True)
     del sh, cost_l
 
     # K6: the first sweep's horizontal and vertical solves of the frame's WLS

@@ -1,31 +1,25 @@
-// K10 and K11: one row shard's vertical path, or its diagonal pair, with a
-// relayed carry plane in and out.
+// K10: one row shard's vertical path with a relayed carry plane in and out.
 //
 // Replaces recon3d_tpu/depth/sgm_pallas.py:vscan_carry (kernel
-// _mk_vscan_io_kernel, pallas_call at sgm_pallas.py:385) and diag_carry
-// (kernel _mk_diag_io_kernel, pallas_call at sgm_pallas.py:343), the
-// building blocks of the row-sharded relay (recon3d_tpu/depth/
-// sgm_sharded.py). Same function: out = acc + L over a shard's (HP, WP, DP)
-// volumes, where the path enters the shard with the neighbouring shard's
-// carry and hands its own on:
-//   down  the carry entering row 0 is carry_in (shifted one column for a
-//         diagonal), and carry_out is the carry after row h_real - 1, the
-//         shard's last real row; the rows below it go on from there;
+// _mk_vscan_io_kernel, pallas_call at sgm_pallas.py:385), a building block
+// of the row-sharded relay (recon3d_tpu/depth/sgm_sharded.py). Same
+// function: out = acc + L over a shard's (HP, WP, DP) volumes, where the
+// path enters the shard with the neighbouring shard's carry and hands its
+// own on:
+//   down  the carry entering row 0 is carry_in, and carry_out is the carry
+//         after row h_real - 1, the shard's last real row; the rows below it
+//         go on from there;
 //   up    the rows below h_real - 1 are swept first from a zero carry, the
-//         carry entering row h_real - 1 is REPLACED by carry_in (shifted for
-//         a diagonal), and carry_out is the carry after row 0.
-// Every row is written, the dead ones past h_real too.
+//         carry entering row h_real - 1 is REPLACED by carry_in, and
+//         carry_out is the carry after row 0.
+// Every row is written, the dead ones past h_real too. The diagonal pair of
+// the same relay (K11) is csrc/sgm_diag.cu's one-pass kernel.
 //
-// The design is the port's per-line scan (sgm_scan.cuh, sgm_diag.cu): one
-// warp owns one line, a column for the vertical path, a diagonal for the
-// pair, with D over the lanes. A line's incoming carry at (y, x) is its own
-// carry from (y -+ 1, x - dx); at the entry row it is carry_in[x - dx] (zero
-// where x - dx leaves the image, as _shift_cols zeroes the entering column),
-// and a diagonal line that enters through a side column starts from zero.
-// The two diagonal paths cross, so the pair runs as two launches on one
-// stream, plane 0 (from x - 1) then plane 1 (from x + 1), as K5 does.
-// Integer-valued f32 sums below 2^24 make every order of the additions
-// exact.
+// The design is the port's per-line scan (sgm_scan.cuh): one warp owns one
+// line, with D over the lanes. The scan takes a column shift dx (a diagonal
+// line's carry comes from (y -+ 1, x - dx), with carry_in[x - dx] at the
+// entry row and zero where x - dx leaves the image); K10 runs it with
+// dx = 0 (a copy written for dx = 0 alone measured slower on the H100).
 //
 // Bound on the H100: bytes. A call reads the cost (157 MB for a 1080p
 // shard, (320, 1920, 128) int16) and acc (315 MB) and writes out over acc;
@@ -128,19 +122,4 @@ extern "C" int r3d_vscan_carry(const int16_t* cost, float* v, const float* carry
                                int reverse, int h_real, cudaStream_t stream) {
   return r3d::launch_carry_scan(cost, v, carry_in, carry_out, HP, WP, DP, p1, p2, 0, reverse,
                                 h_real, stream);
-}
-
-// K11. As K10 for the diagonal pair of one vertical direction, with (2, WP,
-// DP) carries: plane 0 receives from x - 1, plane 1 from x + 1.
-extern "C" int r3d_diag_carry(const int16_t* cost, float* v, const float* carry_in,
-                              float* carry_out, int HP, int WP, int DP, float p1, float p2,
-                              int reverse, int h_real, cudaStream_t stream) {
-  const long long plane = static_cast<long long>(WP) * DP;
-  for (int p = 0; p < 2; ++p) {  // one launch per direction: the paths cross
-    const int err = r3d::launch_carry_scan(cost, v, carry_in + p * plane, carry_out + p * plane,
-                                           HP, WP, DP, p1, p2, p == 0 ? 1 : -1, reverse,
-                                           h_real, stream);
-    if (err != 0) return err;
-  }
-  return 0;
 }

@@ -5,16 +5,23 @@ counter:
 
   cost_fwd_down     K2  csrc/sgm_cost.cu       cost volume + L_fwd (+ L_down)
   bwd_accumulate    K3  csrc/sgm_bwd.cu        v3 = v1 + L_bwd, in place
-  diag_accumulate   K5  csrc/sgm_diag.cu       v3 += a diagonal pair (sgm8)
+  diag_accumulate   K5  csrc/sgm_diag.cu       v3 += a diagonal pair (sgm8), one pass
   vfinalize         K4  csrc/sgm_vfinalize.cu  S = v3 + L_up fused with the WTA and LR check
   fwd_scan          K14 csrc/sgm_scan.cu       v1 = L_fwd of a given cost
   down_accumulate   K14 csrc/sgm_scan.cu       v1 += L_down, in place
-  vscan_carry       K10 csrc/sgm_carry.cu      acc += a shard's vertical path, carry in / out
-  diag_carry        K11 csrc/sgm_carry.cu      acc += a shard's diagonal pair, carries in / out
+  vscan_carry       K10 csrc/sgm_carry.cu      acc + a shard's vertical path, carry in / out
+  diag_carry        K11 csrc/sgm_diag.cu       acc + a shard's diagonal pair, carries in / out
   wta_finalize      K12 csrc/sgm_vfinalize.cu  WTA finalize of a given S
 
 The row-sharded path (depth/sgm_sharded.py) relays the carries of K10 and
 K11 between shards and launches K3 once a shard as K13.
+
+The names that mirror sgm_pallas's public functions (aggregate_and_finalize,
+vscan_carry, diag_carry) leave their inputs as they found them, as the
+jitted JAX functions do; callers that own their buffers take the private
+in-place entries (_aggregate_and_finalize_, _vscan_carry_, _diag_carry_),
+so a frame pays no copy of a volume. bwd_accumulate, diag_accumulate and
+down_accumulate have no JAX namesake and work in place.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors. The padding conventions are sgm_pallas.py's
@@ -285,16 +292,30 @@ def diag_accumulate_plain(cost_u16: torch.Tensor, v: torch.Tensor, p1: float, p2
     return v
 
 
+def _check_diag_kernel(v: torch.Tensor, p1: float, p2: float) -> None:
+    """What the one-pass diagonal kernel (K5, K11) needs beyond the volume
+    checks: a v that starts on a 16-byte boundary, for its vector reductions,
+    and penalties that are whole numbers of x2 cost units, so that its sums,
+    taken in whatever order the two crossing paths arrive, are exact."""
+    if v.data_ptr() % 16:
+        raise ValueError("the path volume must start on a 16-byte boundary")
+    if not (float(p1) * 2.0).is_integer() or not (float(p2) * 2.0).is_integer():
+        raise ValueError(f"the diagonal kernel needs whole x2 penalties, got p1={p1}, p2={p2}")
+
+
 def diag_accumulate(cost_u16: torch.Tensor, v: torch.Tensor, p1: float, p2: float,
                     vertical: str = "down") -> torch.Tensor:
     """K5: v += both diagonal paths of one vertical direction ("down": from
     (y-1, x-+1), "up": from (y+1, x-+1)), written over v and returned.
-    p1 / p2 in cv2 units."""
+    p1 / p2 in cv2 units. On the card one launch, which adds both paths in
+    one pass over v, in no fixed order: v must hold integer-valued f32 below
+    2^24 (every path volume of the port does), so the order changes no bit."""
     if vertical not in ("down", "up"):
         raise ValueError(vertical)
     _check_volumes(cost_u16, v)
     if not kernels.use_kernel(cost_u16, v):
         return diag_accumulate_plain(cost_u16, v, p1, p2, vertical)
+    _check_diag_kernel(v, p1, p2)
     HP, WP, DP = cost_u16.shape
     kernels.launch("r3d_diag_accumulate", cost_u16.device, kernels.ptr(cost_u16),
                    kernels.ptr(v), HP, WP, DP, float(p1) * 2.0, float(p2) * 2.0,
@@ -343,7 +364,8 @@ def _check_carry(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.Tens
 
 
 def _carry_scan(name: str, wrapper, cost_u16, acc, carry_in, p1, p2, reverse, h_real):
-    """Launch K10 / K11 (launcher `name`) and count it on `wrapper`."""
+    """Launch K10 / K11 (launcher `name`) in place on acc and count it on
+    `wrapper`."""
     carry_in = carry_in.contiguous()
     carry_out = torch.empty_like(carry_in)
     HP, WP, DP = cost_u16.shape
@@ -363,18 +385,27 @@ def vscan_carry_plain(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch
     return acc, carry_out[0]
 
 
-def vscan_carry(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.Tensor, p1: float,
-                p2: float, reverse: bool, h_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K10: one row shard's vertical path with relayed carry planes
-    (sgm_pallas.vscan_carry). cost_u16 / acc: the shard's padded (HP, WP,
-    DP) volumes; carry_in: the (WP, DP) f32 plane from the neighbouring
-    shard; h_real: the shard's real rows. Returns (acc + L_vert, written over
-    acc; carry_out (WP, DP)). reverse: the upward path. p1 / p2 in cv2 units."""
+def _vscan_carry_(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.Tensor,
+                  p1: float, p2: float, reverse: bool,
+                  h_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """vscan_carry written over acc (the row-sharded relay's own buffers);
+    its launches count on vscan_carry."""
     _check_carry(cost_u16, acc, carry_in, (), h_real)
     if not kernels.use_kernel(cost_u16, acc, carry_in):
         return vscan_carry_plain(cost_u16, acc, carry_in, p1, p2, reverse, h_real)
     return _carry_scan("r3d_vscan_carry", vscan_carry, cost_u16, acc, carry_in, p1, p2,
                        reverse, h_real)
+
+
+def vscan_carry(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.Tensor, p1: float,
+                p2: float, reverse: bool, h_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10: one row shard's vertical path with relayed carry planes
+    (sgm_pallas.vscan_carry). cost_u16 / acc: the shard's padded (HP, WP,
+    DP) volumes; carry_in: the (WP, DP) f32 plane from the neighbouring
+    shard; h_real: the shard's real rows. Returns (acc + L_vert as a new
+    volume; carry_out (WP, DP)); acc is left as it was. reverse: the upward
+    path. p1 / p2 in cv2 units."""
+    return _vscan_carry_(cost_u16, acc.clone(), carry_in, p1, p2, reverse, h_real)
 
 
 vscan_carry.launches = 0
@@ -387,16 +418,27 @@ def diag_carry_plain(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.
     return _carry_scan_plain(cost_u16, acc, carry_in, p1, p2, reverse, h_real, (1, -1))
 
 
+def _diag_carry_(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.Tensor,
+                 p1: float, p2: float, reverse: bool,
+                 h_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """diag_carry written over acc (the row-sharded relay's own buffers);
+    its launches count on diag_carry."""
+    _check_carry(cost_u16, acc, carry_in, (2,), h_real)
+    if not kernels.use_kernel(cost_u16, acc, carry_in):
+        return diag_carry_plain(cost_u16, acc, carry_in, p1, p2, reverse, h_real)
+    _check_diag_kernel(acc, p1, p2)
+    return _carry_scan("r3d_diag_carry", diag_carry, cost_u16, acc, carry_in, p1, p2,
+                       reverse, h_real)
+
+
 def diag_carry(cost_u16: torch.Tensor, acc: torch.Tensor, carry_in: torch.Tensor, p1: float,
                p2: float, reverse: bool, h_real: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11: vscan_carry for the diagonal pair of one vertical direction
     (sgm_pallas.diag_carry), with (2, WP, DP) carries: plane 0 receives from
-    x - 1, plane 1 from x + 1."""
-    _check_carry(cost_u16, acc, carry_in, (2,), h_real)
-    if not kernels.use_kernel(cost_u16, acc, carry_in):
-        return diag_carry_plain(cost_u16, acc, carry_in, p1, p2, reverse, h_real)
-    return _carry_scan("r3d_diag_carry", diag_carry, cost_u16, acc, carry_in, p1, p2,
-                       reverse, h_real)
+    x - 1, plane 1 from x + 1. Returns (acc + both paths as a new volume;
+    carry_out); acc is left as it was. On the card one launch, K5's one-pass
+    kernel with the carry planes (acc integer-valued, as in diag_accumulate)."""
+    return _diag_carry_(cost_u16, acc.clone(), carry_in, p1, p2, reverse, h_real)
 
 
 diag_carry.launches = 0
@@ -545,17 +587,37 @@ def aggregate_and_finalize(cost_u16: torch.Tensor, p1: float, p2: float, num_dis
                            uniqueness_ratio: int = 10, disp12_max_diff: int = 1,
                            do_subpixel: bool = True, w_real: int | None = None,
                            v1: torch.Tensor | None = None, final_dir: str = "up",
-                           with_diag: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                           with_diag: bool = False,
+                           fuse_bwd: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Path aggregation + finalize on a padded cost volume
     (sgm_pallas.aggregate_and_finalize): backward path (K3), the diagonal
     pairs (K5, with_diag), then the last vertical path and finalize (K4).
-    v1 from cost_fwd_down is consumed in place (it ends holding v3, the sum
-    of every path but the last vertical one, which K4 adds inside its
-    finalize); without it the forward (and, for "up", downward) paths run
-    here (K14).
+    v1 from cost_fwd_down is left as it was (the paths are added onto a
+    copy); without it the forward (and, for "up", downward) paths run here
+    (K14).
     final_dir "up" completes 4-direction mode (v1 holds L_fwd + L_down),
     "down" 3-direction mode (v1 holds L_fwd); with_diag (8-direction mode)
-    needs "up"."""
+    needs "up".
+    fuse_bwd is sgm_pallas's variant that adds the backward path inside the
+    finalize sweep (_mk_vfinalize_kernel(with_bwd=True)), whose sums are
+    bitwise those of K3 then K4; it refuses with_diag, as JAX does. Here it
+    runs K3 then K4: a block of K4 owns 16 columns and sweeps the rows, so a
+    right-to-left row path crosses every block and cannot ride its sweep."""
+    if fuse_bwd and with_diag:
+        raise ValueError("8-direction mode keeps the separate backward pass")
+    return _aggregate_and_finalize_(cost_u16, p1, p2, num_disparities, uniqueness_ratio,
+                                    disp12_max_diff, do_subpixel, w_real,
+                                    None if v1 is None else v1.clone(), final_dir, with_diag)
+
+
+def _aggregate_and_finalize_(cost_u16: torch.Tensor, p1: float, p2: float,
+                             num_disparities: int, uniqueness_ratio: int, disp12_max_diff: int,
+                             do_subpixel: bool, w_real: int | None, v1: torch.Tensor | None,
+                             final_dir: str,
+                             with_diag: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """aggregate_and_finalize consuming v1 in place: it ends holding v3, the
+    sum of every path but the last vertical one, which K4 adds inside its
+    finalize (sgm_disparity_cuda's own buffer)."""
     if final_dir not in ("up", "down"):
         raise ValueError(final_dir)
     if with_diag and final_dir != "up":
@@ -606,9 +668,9 @@ def sgm_disparity_cuda(
     cost, v1 = cost_fwd_down(left_gray, right_gray, num_disparities, min_disparity,
                              block_size, pre_filter_cap, p1, p2, HP, WP, DP,
                              num_directions >= 4)
-    disp_raw, valid = aggregate_and_finalize(
-        cost, p1, p2, num_disparities, uniqueness_ratio, disp12_max_diff, do_subpixel, W,
-        v1=v1, final_dir="up" if num_directions >= 4 else "down", with_diag=num_directions == 8)
+    disp_raw, valid = _aggregate_and_finalize_(
+        cost, p1, p2, num_disparities, uniqueness_ratio, disp12_max_diff, do_subpixel, W, v1,
+        "up" if num_directions >= 4 else "down", num_directions == 8)
     return finish_disparity(disp_raw[:H, :W], valid[:H, :W], num_disparities, min_disparity,
                             speckle_window_size, speckle_range, speckle_method)
 

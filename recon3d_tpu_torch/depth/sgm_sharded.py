@@ -5,7 +5,8 @@ One frame's (H, W, D) cost volume is split over a mesh's row axis
 and run on each shard. The vertical and diagonal paths cross the shard
 boundaries and run as a carry-plane relay: a shard's last (W, D) carry
 (two of them for a diagonal pair) goes to its neighbour, which scans its
-own rows from it (K10 / K11, depth/sgm_cuda.py). The box window's and the
+own rows from it (K10 / K11, depth/sgm_cuda.py, through their in-place
+entries on the shards' own volumes). The box window's and the
 prefilter's support at the seams comes from halo rows of the neighbours'
 PREFILTERED planes (exchanging raw rows would replicate twice at the
 image's edges). Every kernel computes the single-device path's
@@ -147,8 +148,9 @@ def relay(sh: RowShards, scan, carry_planes: Tuple[int, ...], reverse: bool, p1:
           p2: float) -> None:
     """One path pass over the shards in chain order (down: 0 to n-1, up:
     n-1 to 0), in place on sh.S: each local shard takes its neighbour's
-    carry (zero for the first), runs `scan` (vscan_carry with carry_planes
-    (), diag_carry with (2,)) over its rows and hands its carry on."""
+    carry (zero for the first), runs `scan` in place on its volume
+    (sgm_cuda._vscan_carry_ with carry_planes (), _diag_carry_ with (2,))
+    over its rows and hands its carry on."""
     mesh, n = sh.mesh, sh.mesh.n
     hop = -1 if reverse else 1
     for k in (range(n - 1, -1, -1) if reverse else range(n)):
@@ -169,12 +171,12 @@ def aggregate(sh: RowShards, p1: float, p2: float, num_directions: int) -> None:
     the two diagonal pairs (8 directions)."""
     for k in sh.S:
         bwd_accumulate_shard(sh.cost[k], sh.S[k], p1, p2)
-    relay(sh, sgm_cuda.vscan_carry, (), False, p1, p2)
+    relay(sh, sgm_cuda._vscan_carry_, (), False, p1, p2)
     if num_directions >= 4:
-        relay(sh, sgm_cuda.vscan_carry, (), True, p1, p2)
+        relay(sh, sgm_cuda._vscan_carry_, (), True, p1, p2)
     if num_directions == 8:
-        relay(sh, sgm_cuda.diag_carry, (2,), False, p1, p2)
-        relay(sh, sgm_cuda.diag_carry, (2,), True, p1, p2)
+        relay(sh, sgm_cuda._diag_carry_, (2,), False, p1, p2)
+        relay(sh, sgm_cuda._diag_carry_, (2,), True, p1, p2)
 
 
 def sgm_disparity_cuda_rowsharded(

@@ -183,6 +183,58 @@ def test_aggregate_and_finalize_matches_pallas(case):
     assert np.abs(d_t.numpy() - d_j)[v_j].max() < 1e-4
 
 
+@pytest.mark.parametrize("with_v1", [True, False], ids=["v1", "no_v1"])
+def test_aggregate_and_finalize_fuse_bwd_matches_pallas(case, with_v1):
+    """fuse_bwd=True (the JAX package's backward path inside the finalize
+    sweep) against JAX's own fuse_bwd=True in interpret mode, with and
+    without v1, and bitwise against the port's fuse_bwd=False."""
+    c = case
+    j = c["j"]
+    d_j, v_j = sgm_pallas.aggregate_and_finalize(
+        jnp.asarray(c["cost"]), float(j.p1()), float(j.p2()), j.num_disparities,
+        j.uniqueness_ratio, j.disp12_max_diff, True, c["W"], True,
+        v1=jnp.asarray(c["v1"]) if with_v1 else None, fuse_bwd=True)
+    d_j, v_j = np.asarray(d_j), np.asarray(v_j)
+    cost = torch.tensor(c["cost"].astype(np.int16))
+    args = (cost, c["p1"], c["p2"], c["D"], c["ur"], c["md"], True, c["W"])
+    v1 = torch.tensor(c["v1"]) if with_v1 else None
+    d_t, v_t = sgm_cuda.aggregate_and_finalize(*args, v1=v1, fuse_bwd=True)
+    np.testing.assert_array_equal(v_t.numpy(), v_j)
+    assert v_j.any()
+    assert np.abs(d_t.numpy() - d_j)[v_j].max() < 1e-4
+    d_n, v_n = sgm_cuda.aggregate_and_finalize(*args, v1=v1, fuse_bwd=False)
+    assert torch.equal(v_t, v_n) and torch.equal(d_t, d_n)
+
+
+def test_aggregate_and_finalize_leaves_v1_intact(case):
+    """The public mirror leaves the caller's v1 as it was (JAX's jitted
+    function donates nothing), with the same result, bit for bit, as the
+    in-place entry the frame uses on its own v1."""
+    c = case
+    cost = torch.tensor(c["cost"].astype(np.int16))
+    v1 = torch.tensor(c["v1"])
+    for fuse_bwd in (False, True):
+        d_t, v_t = sgm_cuda.aggregate_and_finalize(cost, c["p1"], c["p2"], c["D"], c["ur"],
+                                                   c["md"], True, c["W"], v1=v1,
+                                                   fuse_bwd=fuse_bwd)
+        np.testing.assert_array_equal(v1.numpy(), c["v1"])
+        own = torch.tensor(c["v1"])
+        d_i, v_i = sgm_cuda._aggregate_and_finalize_(cost, c["p1"], c["p2"], c["D"], c["ur"],
+                                                     c["md"], True, c["W"], own, "up", False)
+        assert not torch.equal(own, v1)  # the in-place entry consumed its v1
+        assert torch.equal(v_t, v_i) and torch.equal(d_t, d_i)
+
+
+def test_aggregate_and_finalize_fuse_bwd_refuses_with_diag():
+    """fuse_bwd with with_diag raises, as sgm_pallas asserts (8-direction
+    mode keeps the separate backward pass)."""
+    cost = torch.zeros((64, 128, 128), dtype=torch.int16)
+    for v1 in (None, torch.zeros((64, 128, 128))):
+        with pytest.raises(ValueError):
+            sgm_cuda.aggregate_and_finalize(cost, 72.0, 864.0, 16, v1=v1, with_diag=True,
+                                            fuse_bwd=True)
+
+
 @pytest.mark.parametrize("H,W,D,bs,ur,md", SHAPES)
 def test_sgm_disparity_cuda_matches_pallas(H, W, D, bs, ur, md):
     """The kernel path end to end (fast speckle on), against

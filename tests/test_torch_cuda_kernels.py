@@ -1,14 +1,17 @@
 """On-card checks of the port's kernels against their plain versions at
 shapes chip_smoke.py does not drive: an unaligned warp, D = 256, wide and
-tall volumes (diagonal lines entering through the side columns), 3, 4 and 8
-directions, a nonzero min_disparity, K2 at block sizes 1 to 11 with and
+tall volumes (K5 and K11's helix walkers wrapping round three times), 3, 4
+and 8 directions, a nonzero min_disparity, K2 at block sizes 1 to 11 with and
 without its downward path, K6 on ragged and clamped planes (bitwise),
 DepthPipeline on the card against
 itself on the CPU, backend 'auto' on the card, K7 (bitwise, overflow
 included) and K8 (bitwise, both variants) on small grids, the grid
 normals on the card against the CPU, K9 on any shape, the fusion and
 meshing slice on the card against the CPU (bitwise), K10-K12 on small
-shards (both directions, dead rows below h_real), K4 and K12 bitwise over
+shards (both directions, dead rows below h_real, the public mirrors leaving
+acc as it was), K5 and K11 identical over ten launches, the public
+aggregate_and_finalize leaving v1 as it was and its fuse_bwd variant (K3
+then K4), K4 and K12 bitwise over
 their options (D = 16 / 160 / 256, flat, clamped and 320-row volumes), the
 row-sharded frame on
 the card against the single-device kernel path and batched_depth against
@@ -75,14 +78,14 @@ def test_k1_matches_plain_on_any_shape(dev, H, W, shift):
 @pytest.mark.parametrize("H,W,D,bs,md", [(64, 384, 16, 5, 0), (192, 128, 160, 5, 0),
                                          (192, 120, 160, 11, 3), (192, 133, 160, 11, 3),
                                          (40, 130, 32, 1, 0), (40, 130, 32, 3, 5),
-                                         (72, 200, 256, 5, 2)])
+                                         (72, 200, 256, 5, 2), (384, 128, 16, 5, 0),
+                                         (384, 100, 256, 3, 1)])
 def test_k2_k5_k14_match_plain(dev, H, W, D, bs, md):
     """K2 on a warped (non-integer) pair, with and without the downward
-    path, K5 both ways and K14 both scans, on volumes whose diagonal lines
-    enter through the first row and both side columns (tall volumes, WP <
-    HP, cut short by the far side), with DP = 128 and 256, block sizes 1 to
-    11, min_disparity > 0 and widths that are not a multiple of K2's
-    strip."""
+    path, K5 both ways (one launch a call) and K14 both scans, on wide
+    volumes and tall ones (WP < HP: K5's walkers wrap round the width, three
+    times at HP = 3 WP), with DP = 128 and 256, block sizes 1 to 11,
+    min_disparity > 0 and widths that are not a multiple of K2's strip."""
     gl, gr = _pair(H, W)
     mx, my = chip_smoke.synthetic_maps(H, W)
     plan = warp.build_remap_plan(mx, my, device=dev)
@@ -102,7 +105,10 @@ def test_k2_k5_k14_match_plain(dev, H, W, D, bs, md):
     assert torch.equal(v1_n, sgm_cuda.cost_fwd_down_plain(planes, HP, WP, DP, D, md, bs, p1, p2,
                                                           False)[1])
     for vertical in ("down", "up"):
+        before = sgm_cuda.diag_accumulate.launches
         out = sgm_cuda.diag_accumulate(cost, v1.clone(), p1, p2, vertical)
+        torch.cuda.synchronize()
+        assert sgm_cuda.diag_accumulate.launches == before + 1
         ref = sgm_cuda.diag_accumulate_plain(cost, v1.clone(), p1, p2, vertical)
         assert torch.equal(out, ref), vertical
     fwd = sgm_cuda.fwd_scan(cost, p1, p2)
@@ -310,12 +316,14 @@ def test_fusion_slice_on_card_matches_cpu(dev):
     assert int(meshes["cpu"].triangle_valid.sum()) > 5000
 
 
-@pytest.mark.parametrize("H,W,D", [(64, 256, 128), (128, 128, 256)])
+@pytest.mark.parametrize("H,W,D", [(64, 256, 128), (128, 128, 256), (384, 128, 128),
+                                   (384, 120, 256)])
 def test_k10_k11_k12_match_plain(dev, H, W, D):
     """The carry scans both ways on a shard whose last 8 rows are dead (real
     cost below h_real), with carries from a real scan of another frame, and
-    the finalize of the result; lines enter through the first row and both
-    side columns."""
+    the finalize of the result; K11's walkers wrap round the width (three
+    times at HP = 3 WP), DP 128 and 256. The public mirrors leave acc and
+    carry_in as they were and count one launch a call."""
     HP, WP, DP = sgm_cuda.padded_shape(H, W, D)
     p1, p2, h_real = 200.0, 3200.0, H - 8
     vols = []
@@ -336,10 +344,11 @@ def test_k10_k11_k12_match_plain(dev, H, W, D):
         assert float(carry.max()) > 0
         for reverse in (False, True):
             before = getattr(sgm_cuda, name).launches
-            out_k, cout_k = getattr(sgm_cuda, name)(cost, v1.clone(), carry, p1, p2, reverse,
-                                                    h_real)
+            acc, carry_before = v1.clone(), carry.clone()
+            out_k, cout_k = getattr(sgm_cuda, name)(cost, acc, carry, p1, p2, reverse, h_real)
             torch.cuda.synchronize()
             assert getattr(sgm_cuda, name).launches == before + 1
+            assert torch.equal(acc, v1) and torch.equal(carry, carry_before)
             out_q, cout_q = getattr(sgm_cuda, name + "_plain")(cost, v1.clone(), carry, p1, p2,
                                                               reverse, h_real)
             assert torch.equal(out_k, out_q) and torch.equal(cout_k, cout_q), (name, reverse)
@@ -349,6 +358,69 @@ def test_k10_k11_k12_match_plain(dev, H, W, D):
     d_q, v_q = sgm_cuda.wta_finalize(S.cpu(), D, 10, 1, True, w_real=W)
     assert torch.equal(S, S_in)
     assert torch.equal(v_k.cpu(), v_q) and torch.equal(d_k.cpu(), d_q)
+
+
+def test_k5_k11_identical_over_ten_launches(dev):
+    """K5 and K11 add the two crossing paths with unordered reductions; on
+    integer-valued volumes every order gives the same bits, so ten launches
+    on the same inputs agree exactly (and with the plain versions). Both
+    refuse penalties that are not whole numbers of x2 cost units."""
+    H, W, D, p1, p2 = 320, 600, 128, 200.0, 3200.0
+    gl, gr = (torch.tensor(a, device=dev) for a in _pair(H, W, seed=7))
+    HP, WP, DP = sgm_cuda.padded_shape(H, W, D)
+    cost, v1 = sgm_cuda.cost_fwd_down(gl, gr, D, 0, 5, 63, p1, p2, HP, WP, DP)
+    v3 = sgm_cuda.bwd_accumulate(cost, v1, p1, p2)
+    carry = sgm_cuda.diag_carry(cost, v3, torch.zeros((2, WP, DP), device=dev), p1, p2, False,
+                                HP)[1]
+    for vertical in ("down", "up"):
+        outs = [sgm_cuda.diag_accumulate(cost, v3.clone(), p1, p2, vertical) for _ in range(10)]
+        assert all(torch.equal(o, outs[0]) for o in outs[1:]), vertical
+        assert torch.equal(outs[0], sgm_cuda.diag_accumulate_plain(cost, v3.clone(), p1, p2,
+                                                                   vertical))
+    for reverse in (False, True):
+        outs = [sgm_cuda.diag_carry(cost, v3, carry, p1, p2, reverse, H - 8) for _ in range(10)]
+        assert all(torch.equal(o, outs[0][0]) and torch.equal(c, outs[0][1])
+                   for o, c in outs[1:]), reverse
+        ref = sgm_cuda.diag_carry_plain(cost, v3.clone(), carry, p1, p2, reverse, H - 8)
+        assert torch.equal(outs[0][0], ref[0]) and torch.equal(outs[0][1], ref[1])
+    # a penalty that is not a whole number of x2 units would make the order count
+    with pytest.raises(ValueError):
+        sgm_cuda.diag_accumulate(cost, v3.clone(), 200.25, p2)
+    with pytest.raises(ValueError):
+        sgm_cuda.diag_carry(cost, v3, carry, p1, 3200.25, False, H)
+
+
+@pytest.mark.parametrize("num_directions", [3, 4, 8])
+def test_aggregate_and_finalize_on_card_leaves_v1_intact(dev, num_directions):
+    """The public aggregate_and_finalize leaves the caller's v1 as it was,
+    equal bit for bit to the frame's in-place entry and its launches
+    counted; fuse_bwd (4 and 3 directions) is K3 then K4, bitwise equal to
+    fuse_bwd=False; with 8 directions it is refused."""
+    H, W, D, p1, p2 = 104, 256, 64, 200.0, 3200.0
+    gl, gr = (torch.tensor(a, device=dev) for a in _pair(H, W, seed=9))
+    HP, WP, DP = sgm_cuda.padded_shape(H, W, D)
+    final_dir = "up" if num_directions >= 4 else "down"
+    cost, v1 = sgm_cuda.cost_fwd_down(gl, gr, D, 0, 5, 63, p1, p2, HP, WP, DP,
+                                      num_directions >= 4)
+    v1_in = v1.clone()
+    args = (cost, p1, p2, D, 10, 1, True, W)
+    ref = sgm_cuda._aggregate_and_finalize_(*args, v1.clone(), final_dir, num_directions == 8)
+    for fuse_bwd in (False, True):
+        if fuse_bwd and num_directions == 8:
+            with pytest.raises(ValueError):
+                sgm_cuda.aggregate_and_finalize(*args, v1=v1, with_diag=True, fuse_bwd=True)
+            continue
+        before = (sgm_cuda.bwd_accumulate.launches, sgm_cuda.vfinalize.launches,
+                  sgm_cuda.diag_accumulate.launches)
+        d, v = sgm_cuda.aggregate_and_finalize(*args, v1=v1, final_dir=final_dir,
+                                               with_diag=num_directions == 8, fuse_bwd=fuse_bwd)
+        torch.cuda.synchronize()
+        after = (sgm_cuda.bwd_accumulate.launches, sgm_cuda.vfinalize.launches,
+                 sgm_cuda.diag_accumulate.launches)
+        assert after == (before[0] + 1, before[1] + 1,
+                         before[2] + (2 if num_directions == 8 else 0))
+        assert torch.equal(v1, v1_in)
+        assert torch.equal(d, ref[0]) and torch.equal(v, ref[1])
 
 
 def _k4_volumes(case, dev):

@@ -65,6 +65,25 @@ def test_carry_scan_matches_pallas(shard, kernel, reverse, h_real):
     assert not torch.equal(out_t, v1)
 
 
+@pytest.mark.parametrize("reverse", [False, True], ids=["down", "up"])
+@pytest.mark.parametrize("kernel", ["vscan_carry", "diag_carry"])
+def test_carry_scans_leave_acc_intact(shard, kernel, reverse):
+    """The public mirrors leave the caller's acc and carry_in as they were
+    (JAX's jitted functions donate nothing) and return, bit for bit, what
+    the in-place entry the relay uses writes over its own acc."""
+    cost, v1, carry, carry2 = shard
+    carry_in = carry if kernel == "vscan_carry" else carry2
+    acc, carry_before = v1.clone(), carry_in.clone()
+    out, cout = getattr(sgm_cuda, kernel)(cost, acc, carry_in, P1, P2, reverse, H - 8)
+    assert torch.equal(acc, v1) and torch.equal(carry_in, carry_before)
+    own = v1.clone()
+    out_i, cout_i = getattr(sgm_cuda, "_" + kernel + "_")(cost, own, carry_in, P1, P2, reverse,
+                                                          H - 8)
+    assert out_i.data_ptr() == own.data_ptr()  # in place
+    assert torch.equal(out, out_i) and torch.equal(cout, cout_i)
+    assert not torch.equal(out, v1)
+
+
 def test_wta_finalize_matches_pallas(shard):
     """K12 on an S aggregated from the four straight paths, w_real < WP."""
     cost, v1, carry, _ = shard
