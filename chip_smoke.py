@@ -13,11 +13,15 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               cloud;
   headline    bench.py:build_headline's frame: the raw pair (the rectified
               scene pushed through the inverse of the bench's synthetic
-              rectification) through the two-pass warp (K1) twice, then the
+              rectification) through the two-pass warp (K1: both passes in
+              one launch) twice, then the
               slice's frame and the BGR color stream's cloud; a line before
               it (headline_profile) gives the frame's device busy share and
-              kernel time by name under torch.profiler over 3 frames, and
-              the device ms of the fused K4 and its LR check a frame;
+              kernel time by name under torch.profiler over 3 frames, the
+              device ms of the fused K4 and its LR check a frame and of a
+              K1 launch;
+  one_pass    (a counted path, no line) K1's one-pass entry, resample_pass,
+              twice as its callers use it: equal to the fused remap;
   pipeline    one DepthPipeline.process at 1920x1080 on an in-memory rig
               with radial distortion and small rectifying rotations;
   accurate    the accurate() preset (SGM-8, P2 = 128 * 25) on the rectified
@@ -64,9 +68,16 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               K9 volume (equal) and the vertices against the scene;
   kernels     each kernel against its plain version on its path's own
               inputs (bitwise: K2 on the rectified and the warped pair, with
-              and without the downward path; K6 on both axes), its median
-              CUDA-event time over 10 launches, the plain version's median
-              over 3, the least time the card could take (bound_ms) and,
+              and without the downward path; K6 on both axes; K8 both
+              variants), its device time (ms: a run of 10 launches between
+              one event pair behind a spin that hides the host, over the
+              count; for a working set under the 50 MB L2 the median of 10
+              launches each after an L2 flush, and that time is the row's
+              ms; call_ms: one call between an event pair, the host's
+              wrapper included), the plain version's median over 3, the
+              least time the card could take (bound_ms: bytes at 3.35 TB/s
+              or operations at 67e12 a second, K8's at 33.45e12
+              uncontracted f32 instructions a second) and,
               where one PyTorch call computes the same or the yardstick
               function, that call's time (library_ms); K2 also its two
               stages (the walk, the forward scan) apart and its call
@@ -97,7 +108,7 @@ import sys
 import tempfile
 import time
 
-BUDGET_S = 300  # whole-run watchdog: a hang exits nonzero with a traceback
+BUDGET_S = 600  # whole-run watchdog (half of the 1200 s a run may take): a hang exits nonzero
 DEVICE = "cuda"  # the card; a rehearsal of the script on the CPU sets "cpu"
 H, W, D = 1080, 1920, 128
 FOCAL, BASELINE = 1050.0, 0.06
@@ -116,7 +127,14 @@ VOXEL_10M = dict(n=10_000_000, voxel_size=0.05, capacity=1 << 14, runs=3)
 FUSION = dict(width=640, height=480, frames=30, origin=(-0.512, -0.512, 0.902),
               point_capacity=1 << 18, mesh_runs=3)
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 ops/s outside tensor cores
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# (a fused multiply-add counted as two), and the rate of f32 instructions
+# (132 SMs x 128 lanes x 1.98 GHz): the ceiling of a kernel held to one rounding an
+# operation (__f*_rn, no contraction), where each addition and product is one
+HBM_BYTES_PER_S, F32_OPS_PER_S, F32_INSTR_PER_S = 3.35e12, 67e12, 132 * 128 * 1.98e9
+# the H100's L2: a kernel whose bytes fit is also timed with it flushed, and that
+# time is the one held to the bound; the flush writes five times as much
+L2_BYTES, L2_FLUSH_BYTES = 50 * 2 ** 20, 256 * 2 ** 20
+SPIN_CYCLES_PER_MS = 1.98e6  # torch.cuda._sleep's cycles a millisecond at 1.98 GHz
 
 
 def emit(obj):
@@ -253,9 +271,78 @@ def cuda_ms(fn, runs, setup=lambda: ()):
     return statistics.median(times)
 
 
-def bound_ms(nbytes, nops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def _spin(ms):
+    """A kernel that keeps the stream busy for about `ms` (and touches no
+    memory), so that what the host enqueues behind it runs back to back."""
+    import torch
+
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_MS * ms))
+
+
+def run_ms(fn, runs, setup=lambda: ()):
+    """Device ms of one call of fn(*setup()) in a run: `runs` launches (one
+    setup for the run) between one event pair, over the count, behind a spin
+    that outlasts the host's enqueueing of the run, so the wrapper's host
+    time is hidden. The L2 holds what the previous launch left."""
+    import torch
+
+    args = setup()
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _spin(max(1.0, 3.0 * host_ms * runs))
+    start.record()
+    for _ in range(runs):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def cold_ms(fn, runs, setup=lambda: ()):
+    """Median device ms of `runs` single calls of fn(*setup()), each after
+    an L2 flush (a write of L2_FLUSH_BYTES) and a spin that outlasts the
+    host's enqueueing of the call, both outside the timed region."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    times = []
+    for _ in range(runs):
+        args = setup()
+        flush.zero_()
+        _spin(1.0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_times(fn, nbytes, runs, setup=lambda: ()):
+    """A kernel row's times: call_ms, one call between an event pair (the
+    host's wrapper included, on an idle stream: the earlier yardstick);
+    warm_ms (run_ms) and, for a working set under the L2, cold_ms. `ms` is
+    the cold time where there is one (held to the bound, so no share reads
+    above 100 %), else the warm one."""
+    t = {"call_ms": cuda_ms(fn, runs, setup), "warm_ms": run_ms(fn, runs, setup)}
+    if nbytes < L2_BYTES:
+        t["cold_ms"] = cold_ms(fn, runs, setup)
+    t["ms"] = t.get("cold_ms", t["warm_ms"])
+    return t
+
+
+def bound_ms(nbytes, nops, ops_per_s=F32_OPS_PER_S):
+    """(least ms, what bounds it, the operations' ceiling): the bytes at the
+    HBM rate against the operations at `ops_per_s`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            "fma" if ops_per_s == F32_OPS_PER_S else "instructions")
 
 
 
@@ -455,7 +542,8 @@ def main():
           "library": str(kernels.BUILD_DIR / kernels.LIB_NAME)})
 
     # every kernel wrapper's launch counter
-    wrappers = {"K1": warp.resample_pass, "K2": sgm_cuda.cost_fwd_down,
+    wrappers = {"K1": warp.remap_two_pass_cuda, "K1 pass": warp.resample_pass,
+                "K2": sgm_cuda.cost_fwd_down,
                 "K3": sgm_cuda.bwd_accumulate, "K4": sgm_cuda.vfinalize,
                 "K5": sgm_cuda.diag_accumulate, "K6": wls_cuda.tridiag_solve,
                 "K14 fwd": sgm_cuda.fwd_scan, "K14 down": sgm_cuda.down_accumulate,
@@ -629,13 +717,16 @@ def main():
         return lg, rg, disp, valid, pc
 
     (lg, rg, disp, valid, pc), launches = counted(
-        headline, {"K1": 4, "K2": 1, "K3": 1, "K4": 1, "K6": 6})
+        headline, {"K1": 2, "K2": 1, "K3": 1, "K4": 1, "K6": 6})
     stats = frame_stats(*timed_frames(headline), "headline")
     # the frame's device busy share and kernel time by name, a frame
     prof, dev_us = device_profile(lambda: [headline() for _ in range(PROFILE_FRAMES)], top=16,
                                   calls=PROFILE_FRAMES)
+    # K1's device ms a launch, alone: the profiler's kernel time (2 a frame)
+    k1_profiled_ms = round(sum(t for n, t in dev_us.items() if "remap_two_pass_kernel" in n)
+                           / 1e3 / (2 * PROFILE_FRAMES), 4) if prof else None
     emit({"phase": "headline_profile", "frames": PROFILE_FRAMES, "per_frame": prof,
-          "finalize_ms": finalize_ms(dev_us, PROFILE_FRAMES)})
+          "finalize_ms": finalize_ms(dev_us, PROFILE_FRAMES), "k1_ms": k1_profiled_ms})
     lg_p, rg_p = warp.remap_two_pass(raw_l, plan), warp.remap_two_pass(raw_r, plan)
     check(torch.equal(lg, lg_p) and torch.equal(rg, rg_p), "headline: warp differs from plain")
     u, vp = plain_disparity(lg_p, rg_p, m, w, 4)
@@ -663,6 +754,18 @@ def main():
           "points_valid": int(pc.valid.sum()), "rmse_vs_plain_px": rmse_plain,
           "rmse_vs_truth": truth})
     all_launches["headline"] = launches
+    # the one-pass entry as its callers use it: the vertical pass, then the
+    # horizontal one with the mask, equal to the fused remap
+    def one_pass():
+        t = warp.resample_pass(raw_l, plan.vy, plan.v_coarse, plan.v_coarse_bits,
+                               plan.v_resid_bound, 0)
+        return warp.resample_pass(t, plan.hx, plan.h_coarse, plan.h_coarse_bits,
+                                  plan.h_resid_bound, 1, plan.valid)
+
+    lg_1, launches = counted(one_pass, {"K1 pass": 2})
+    check(torch.equal(lg_1, lg), "one_pass: the two passes differ from the fused remap")
+    all_launches["one_pass"] = launches
+    del lg_1
     del lg_p, rg_p, u, vp, d_sgm, v_sgm, disp, valid, pc
 
     # ---- pipeline: DepthPipeline.process on an in-memory rig
@@ -671,7 +774,7 @@ def main():
     init_s = time.perf_counter() - t0
     check(pipe.plans is not None, "pipeline: the rig's maps are not row-monotonic")
     (p_disp, p_depth, p_vis), launches = counted(
-        lambda: pipe.process(raw_l, raw_r), {"K1": 4, "K2": 1, "K3": 1, "K4": 1, "K6": 6})
+        lambda: pipe.process(raw_l, raw_r), {"K1": 2, "K2": 1, "K3": 1, "K4": 1, "K6": 6})
     check(p_disp.shape == (H, W) and p_depth.shape == (H, W) and p_vis.shape == (H, W, 3),
           "pipeline output shapes")
     check(bool(torch.isfinite(p_disp).all() and torch.isfinite(p_depth).all()
@@ -1131,29 +1234,43 @@ def main():
     rows = []
     n_el = HP * WP * DP
 
-    def row(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None,
+    def row(name, source, replaces, launches, err, times, plain_ms, bound, library_ms=None,
             **extra):
+        """A kernel row; `times` from kernel_times (its ms is held to the bound)."""
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=launches, max_abs_err=err, ms=round(ms, 4),
+                         launches=launches, max_abs_err=err, ms=round(times["ms"], 4),
                          plain_ms=round(plain_ms, 4), bound_ms=round(bound[0], 4),
-                         bound_by=bound[1],
+                         bound_by=bound[1], ops_ceiling=bound[2],
                          library_ms=None if library_ms is None else round(library_ms, 4),
-                         **extra))
+                         **{k: round(v, 4) for k, v in times.items() if k != "ms"}, **extra))
 
     slice_n = all_launches["slice"]
 
-    # K1, one row per pass, on the headline's raw left image. Each
-    # remap_two_pass_cuda call launches each pass once, so a pass's count
-    # is half of K1's. The yardstick is one grid_sample over the same maps:
+    # K1 on the headline's raw left image: the fused remap (both passes, one
+    # launch; two a frame) and, one row a pass, its one-pass form (the
+    # one_pass path). The yardstick is one grid_sample over the same maps:
     # the single-pass bilinear remap, a different function from the
     # two-pass one (on this card gathers are cheap).
-    t_k = warp.resample_pass(raw_l, plan.vy, plan.v_coarse, plan.v_coarse_bits,
-                             plan.v_resid_bound, 0)
     grid = torch.stack([torch.tensor(mx, device=dev) * (2.0 / (W - 1)) - 1.0,
                         torch.tensor(my, device=dev) * (2.0 / (H - 1)) - 1.0], -1)[None]
-    grid_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
+    grid_ms = run_ms(lambda: torch.nn.functional.grid_sample(
         raw_l[None, None], grid, mode="bilinear", padding_mode="zeros", align_corners=True),
         KERNEL_RUNS)
+    library = ("torch.nn.functional.grid_sample, bilinear, zeros, align_corners: the "
+               "single-pass remap of the whole frame, not the same function")
+    out_k = warp.remap_two_pass_cuda(raw_l, plan)
+    out_q = warp.remap_two_pass(raw_l, plan)
+    check(torch.equal(out_k, out_q), "K1 differs from its plain version")
+    nbytes = 4 * H * W * 4 + H * W + (H + W) * 4
+    row("K1 remap_two_pass", "recon3d_tpu_torch/csrc/warp_resample.cu",
+        "recon3d_tpu/ops/warp.py:266, recon3d_tpu/ops/warp.py:276",
+        all_launches["headline"]["K1"], float((out_k - out_q).abs().max()),
+        kernel_times(lambda: warp.remap_two_pass_cuda(raw_l, plan), nbytes, KERNEL_RUNS),
+        cuda_ms(lambda: warp.remap_two_pass(raw_l, plan), PLAIN_RUNS),
+        bound_ms(nbytes, 28 * H * W), grid_ms, library=library,
+        profiled_ms=k1_profiled_ms)
+    t_k = warp.resample_pass(raw_l, plan.vy, plan.v_coarse, plan.v_coarse_bits,
+                             plan.v_resid_bound, 0)
     passes = (("vertical", raw_l, plan.vy, plan.v_coarse, plan.v_coarse_bits, plan.v_resid_bound,
                0, None), ("horizontal", t_k, plan.hx, plan.h_coarse, plan.h_coarse_bits,
                           plan.h_resid_bound, 1, plan.valid))
@@ -1165,12 +1282,10 @@ def main():
         nbytes = 3 * H * W * 4 + coarse.numel() * 4 + (0 if mask is None else H * W)
         row(f"K1 resample_pass {name}", "recon3d_tpu_torch/csrc/warp_resample.cu",
             f"recon3d_tpu/ops/warp.py:{266 if axis == 0 else 276}",
-            all_launches["headline"]["K1"] // 2, float((out_k - out_q).abs().max()),
-            cuda_ms(lambda: warp.resample_pass(*args), KERNEL_RUNS),
+            all_launches["one_pass"]["K1 pass"] // 2, float((out_k - out_q).abs().max()),
+            kernel_times(lambda: warp.resample_pass(*args), nbytes, KERNEL_RUNS),
             cuda_ms(lambda: warp.resample_pass_plain(*args), PLAIN_RUNS),
-            bound_ms(nbytes, 14 * H * W), grid_ms,
-            library="torch.nn.functional.grid_sample, bilinear, zeros, align_corners: the "
-                    "single-pass remap of the whole frame, not the same function")
+            bound_ms(nbytes, 14 * H * W), grid_ms, library=library)
     del t_k, out_k, out_q, grid
 
     # K2
@@ -1208,9 +1323,9 @@ def main():
     stage_ms = {}
     for down in (True, False):
         key = "" if down else "_without_down"
-        stage_ms["walk" + key] = cuda_ms(lambda: walk(down, v1_s), KERNEL_RUNS)
-        stage_ms["fwd" + key] = cuda_ms(lambda v: fwd(down, v), KERNEL_RUNS,
-                                        lambda: (v1_s.clone(),))
+        stage_ms["walk" + key] = run_ms(lambda: walk(down, v1_s), KERNEL_RUNS)
+        stage_ms["fwd" + key] = run_ms(lambda v: fwd(down, v), KERNEL_RUNS,
+                                       lambda: (v1_s.clone(),))
     walk(True, v1_s)
     fwd(True, v1_s)
     check(torch.equal(cost_s, cost_k) and torch.equal(v1_s, v1_k),
@@ -1218,10 +1333,11 @@ def main():
     del cost_s, v1_s
     k2_no_down = lambda: sgm_cuda.cost_fwd_down(  # noqa: E731
         gl, gr, D, 0, m.block_size, m.pre_filter_cap, p1, p2, HP, WP, DP, False, planes=planes)
+    nbytes = 6 * H * W * 4 + cost_b + v1_b
     row("K2 cost_fwd_down", "recon3d_tpu_torch/csrc/sgm_cost.cu",
-        "recon3d_tpu/depth/sgm_pallas.py:985", slice_n["K2"], err, cuda_ms(k2, KERNEL_RUNS),
-        cuda_ms(k2p, PLAIN_RUNS), bound_ms(6 * H * W * 4 + cost_b + v1_b, 30 * n_el),
-        ms_without_down=round(cuda_ms(k2_no_down, KERNEL_RUNS), 4),
+        "recon3d_tpu/depth/sgm_pallas.py:985", slice_n["K2"], err,
+        kernel_times(k2, nbytes, KERNEL_RUNS), cuda_ms(k2p, PLAIN_RUNS),
+        bound_ms(nbytes, 30 * n_el), ms_without_down=round(run_ms(k2_no_down, KERNEL_RUNS), 4),
         stages_ms={k: round(v, 4) for k, v in stage_ms.items()})
 
     # K14: the standalone forward scan and the downward scan, on K2's cost
@@ -1231,8 +1347,8 @@ def main():
     check(torch.equal(v_k, v_q), "K14 forward scan differs from its plain version")
     row("K14 fwd_scan", "recon3d_tpu_torch/csrc/sgm_scan.cu",
         "recon3d_tpu/depth/sgm_pallas.py:1067", std_n["K14 fwd"],
-        float((v_k - v_q).abs().max()), cuda_ms(lambda: sgm_cuda.fwd_scan(cost_k, p1, p2),
-                                                KERNEL_RUNS),
+        float((v_k - v_q).abs().max()),
+        kernel_times(lambda: sgm_cuda.fwd_scan(cost_k, p1, p2), cost_b + v1_b, KERNEL_RUNS),
         cuda_ms(lambda: sgm_cuda.fwd_scan_plain(cost_k, p1, p2), PLAIN_RUNS),
         bound_ms(cost_b + v1_b, 8 * n_el))
     d_k = sgm_cuda.down_accumulate(cost_k, v_k.clone(), p1, p2)
@@ -1242,8 +1358,8 @@ def main():
     row("K14 down_accumulate", "recon3d_tpu_torch/csrc/sgm_scan.cu",
         "recon3d_tpu/depth/sgm_pallas.py:1077", std_n["K14 down"],
         float((d_k - d_q).abs().max()),
-        cuda_ms(lambda v: sgm_cuda.down_accumulate(cost_k, v, p1, p2), KERNEL_RUNS,
-                lambda: (v_k.clone(),)),
+        kernel_times(lambda v: sgm_cuda.down_accumulate(cost_k, v, p1, p2),
+                     cost_b + 2 * v1_b, KERNEL_RUNS, lambda: (v_k.clone(),)),
         cuda_ms(lambda v: sgm_cuda.down_accumulate_plain(cost_k, v, p1, p2), PLAIN_RUNS,
                 lambda: (v_k.clone(),)),
         bound_ms(cost_b + 2 * v1_b, 9 * n_el))
@@ -1257,8 +1373,8 @@ def main():
     del v3_q
     row("K3 bwd_accumulate", "recon3d_tpu_torch/csrc/sgm_bwd.cu",
         "recon3d_tpu/depth/sgm_pallas.py:1094", slice_n["K3"], err,
-        cuda_ms(lambda v: sgm_cuda.bwd_accumulate(cost_k, v, p1, p2), KERNEL_RUNS,
-                lambda: (v1_k.clone(),)),
+        kernel_times(lambda v: sgm_cuda.bwd_accumulate(cost_k, v, p1, p2), cost_b + 2 * v1_b,
+                     KERNEL_RUNS, lambda: (v1_k.clone(),)),
         cuda_ms(lambda v: sgm_cuda.bwd_accumulate_plain(cost_k, v, p1, p2), PLAIN_RUNS,
                 lambda: (v1_k.clone(),)),
         bound_ms(cost_b + 2 * v1_b, 8 * n_el))
@@ -1278,11 +1394,12 @@ def main():
     no_lr = args[:4] + (-1,) + args[5:]
     row("K4 vfinalize", "recon3d_tpu_torch/csrc/sgm_vfinalize.cu",
         "recon3d_tpu/depth/sgm_pallas.py:1135", slice_n["K4"], float((d_k - d_q).abs().max()),
-        cuda_ms(lambda: sgm_cuda.vfinalize(cost_k, v3_k, *args), KERNEL_RUNS),
+        kernel_times(lambda: sgm_cuda.vfinalize(cost_k, v3_k, *args),
+                     cost_b + v1_b + HP * WP * 8, KERNEL_RUNS),
         cuda_ms(lambda: sgm_cuda.vfinalize_plain(cost_k, v3_k, *args), PLAIN_RUNS),
         bound_ms(cost_b + v1_b + HP * WP * 8, 16 * n_el),
-        ms_without_lr_check=round(cuda_ms(lambda: sgm_cuda.vfinalize(cost_k, v3_k, *no_lr),
-                                          KERNEL_RUNS), 4))
+        ms_without_lr_check=round(run_ms(lambda: sgm_cuda.vfinalize(cost_k, v3_k, *no_lr),
+                                         KERNEL_RUNS), 4))
     del cost_k, v3_k, d_q, val_q
 
     # K5, one row per vertical direction, on the accurate frame's cost and
@@ -1301,8 +1418,8 @@ def main():
         row(f"K5 diag_accumulate {vertical}", "recon3d_tpu_torch/csrc/sgm_diag.cu",
             "recon3d_tpu/depth/sgm_pallas.py:1111", all_launches["accurate"]["K5"] // 2,
             float((out_k - out_q).abs().max()),
-            cuda_ms(lambda v: sgm_cuda.diag_accumulate(cost8, v, p1, p2_8, vertical),
-                    KERNEL_RUNS, lambda: (v8.clone(),)),
+            kernel_times(lambda v: sgm_cuda.diag_accumulate(cost8, v, p1, p2_8, vertical),
+                         cost_b + 2 * v1_b, KERNEL_RUNS, lambda: (v8.clone(),)),
             cuda_ms(lambda v: sgm_cuda.diag_accumulate_plain(cost8, v, p1, p2_8, vertical),
                     PLAIN_RUNS, lambda: (v8.clone(),)),
             bound_ms(cost_b + 2 * v1_b, 2 * 9 * n_el),
@@ -1327,8 +1444,8 @@ def main():
     row("K13 bwd_accumulate_shard", "recon3d_tpu_torch/csrc/sgm_bwd.cu",
         "recon3d_tpu/depth/sgm_sharded.py:59", all_launches["rowsharded"]["K13"],
         float((v3_k - v3_q).abs().max()),
-        cuda_ms(lambda v: sgm_sharded.bwd_accumulate_shard(cost_l, v, p1, p2), KERNEL_RUNS,
-                lambda: (v1_l.clone(),)),
+        kernel_times(lambda v: sgm_sharded.bwd_accumulate_shard(cost_l, v, p1, p2), shard_b,
+                     KERNEL_RUNS, lambda: (v1_l.clone(),)),
         cuda_ms(lambda v: sgm_cuda.bwd_accumulate_plain(cost_l, v, p1, p2), PLAIN_RUNS,
                 lambda: (v1_l.clone(),)),
         bound_ms(shard_b, 8 * el), shard=list(cost_l.shape), h_real=h_l)
@@ -1363,8 +1480,9 @@ def main():
                     bound_ms(2 * shard_b + 2 * carry.numel() * 4, 0)[0], 4)
             row(f"{name} {'up' if reverse else 'down'}", source, replaces, launches,
                 max(float((out_k - out_q).abs().max()), float((cout_k - cout_q).abs().max())),
-                cuda_ms(lambda v: inplace(shards.cost[last], v, carry, p1, p2_, reverse, h_l),
-                        KERNEL_RUNS, lambda: (S_l.clone(),)),
+                kernel_times(lambda v: inplace(shards.cost[last], v, carry, p1, p2_, reverse,
+                                               h_l), shard_b + 2 * carry.numel() * 4, KERNEL_RUNS,
+                             lambda: (S_l.clone(),)),
                 cuda_ms(lambda v: plain(shards.cost[last], v, carry, p1, p2_, reverse, h_l),
                         PLAIN_RUNS, lambda: (S_l.clone(),)),
                 bound_ms(shard_b + 2 * carry.numel() * 4, 9 * (planes[0] if planes else 1) * el),
@@ -1389,12 +1507,13 @@ def main():
     fin_no_lr = fin[:2] + (-1,) + fin[3:]
     row("K12 wta_finalize", "recon3d_tpu_torch/csrc/sgm_vfinalize.cu",
         "recon3d_tpu/depth/sgm_pallas.py:537", all_launches["rowsharded"]["K12"],
-        float((d_k - d_q).abs().max()), cuda_ms(lambda: sgm_cuda.wta_finalize(S_l, *fin),
-                                                KERNEL_RUNS),
+        float((d_k - d_q).abs().max()),
+        kernel_times(lambda: sgm_cuda.wta_finalize(S_l, *fin), el * 4 + d_k.numel() * 5,
+                     KERNEL_RUNS),
         cuda_ms(lambda: sgm_cuda.wta_finalize_plain(S_l, *fin), PLAIN_RUNS),
         bound_ms(el * 4 + d_k.numel() * 5, 8 * el), shard=list(S_l.shape),
-        ms_without_lr_check=round(cuda_ms(lambda: sgm_cuda.wta_finalize(S_l, *fin_no_lr),
-                                          KERNEL_RUNS), 4))
+        ms_without_lr_check=round(run_ms(lambda: sgm_cuda.wta_finalize(S_l, *fin_no_lr),
+                                         KERNEL_RUNS), 4))
     del sh, S_l, d_k, val_k, d_q, val_q
     # K11 on the accurate frame's last shard, after its vertical relays
     sh = sgm_sharded.shard_volumes(gl, gr, row_mesh, D, 0, m8.block_size, m8.pre_filter_cap, p1,
@@ -1422,12 +1541,14 @@ def main():
         out_q = wls_cuda.tridiag_solve_plain(*sp, axis)
         check(torch.equal(out_k, out_q), f"K6 axis {axis} differs from its plain version")
         err = max(err, float((out_k - out_q).abs().max()))
-        times.append(cuda_ms(lambda: wls_cuda.tridiag_solve(*sp, axis), KERNEL_RUNS))
+        times.append(kernel_times(lambda: wls_cuda.tridiag_solve(*sp, axis), 5 * H * W * 4,
+                                  KERNEL_RUNS))
         plain_times.append(cuda_ms(lambda: wls_cuda.tridiag_solve_plain(*sp, axis), PLAIN_RUNS))
     row("K6 tridiag_solve", "recon3d_tpu_torch/csrc/wls_tridiag.cu",
-        "recon3d_tpu/depth/wls_pallas.py:102", slice_n["K6"], err, sum(times) / 2,
-        sum(plain_times) / 2, bound_ms(5 * H * W * 4, 10 * H * W),
-        ms_axis1=round(times[0], 4), ms_axis0=round(times[1], 4))
+        "recon3d_tpu/depth/wls_pallas.py:102", slice_n["K6"], err,
+        {k: (times[0][k] + times[1][k]) / 2 for k in times[0]}, sum(plain_times) / 2,
+        bound_ms(5 * H * W * 4, 10 * H * W),
+        ms_axis1=round(times[0]["ms"], 4), ms_axis0=round(times[1]["ms"], 4))
 
     # K7 and K8 at the scan_post and normals_1m shapes. K7's yardstick is
     # one index_select of the sorted points at the clamped slot positions:
@@ -1442,12 +1563,12 @@ def main():
               torch.equal(pk_k, pk_q), f"K7 differs from its plain version ({shape})")
         slot = torch.arange(pk_q.shape[0], device=dev)
         pos = torch.clamp(start[slot // C_].long() + slot % C_, max=sp.shape[0] - 1)
+        nbytes = pk_q.numel() * 4 + sp.numel() * 4 + start.numel() * 4
         row(f"K7 pack_cells {shape}", "recon3d_tpu_torch/csrc/grid_pack.cu",
             "recon3d_tpu/ops/grid_knn_pallas.py:319", all_launches[shape]["K7"], 0.0,
-            cuda_ms(lambda: grid_knn_cuda.pack_cells(sp, start, C_), KERNEL_RUNS),
+            kernel_times(lambda: grid_knn_cuda.pack_cells(sp, start, C_), nbytes, KERNEL_RUNS),
             cuda_ms(lambda: grid_knn.pack_plain(sp, start, C_), PLAIN_RUNS),
-            bound_ms(pk_q.numel() * 4 + sp.numel() * 4 + start.numel() * 4, 0),
-            cuda_ms(lambda: torch.index_select(sp, 0, pos), KERNEL_RUNS),
+            bound_ms(nbytes, 0), run_ms(lambda: torch.index_select(sp, 0, pos), KERNEL_RUNS),
             library="torch.index_select of the sorted points at the clamped slot positions: "
                     "the placement without occupancy", grid=[G_, C_],
             occupied_slots=int(pk_q[:, 3].sum()))
@@ -1457,29 +1578,18 @@ def main():
             out_k = grid_knn_cuda.core_call(pk_q, r2, G_, C_, fused)
             out_q = grid_knn.core_plain(pk_q, r2, G_, C_, fused)
             cnt = out_k[:, 3 if fused else 0]
-            check(torch.equal(cnt, out_q[:, 3 if fused else 0]),
-                  f"K8 {variant} count differs from its plain version ({shape})")
-            if fused:
-                agree = normals_agree(out_k[:, :3], out_q[:, :3], cnt >= 5, False,
-                                      f"K8 fused ({shape})")
-            else:
-                nn = torch.clamp(cnt, min=1.0)[:, None]
-                extent = float((pts_[valid_].amax(0) - pts_[valid_].amin(0)).max())
-                d1 = float((out_k[:, 1:4] / nn - out_q[:, 1:4] / nn).abs().max())
-                d2 = float((out_k[:, 4:] / nn - out_q[:, 4:] / nn).abs().max())
-                agree = {"mean": d1, "second": d2, "extent": extent,
-                         "bitwise": bool(torch.equal(out_k, out_q))}
-                check(d1 <= 1e-5 * extent and d2 <= 1e-5 * extent ** 2,
-                      f"K8 moments differ from their plain version ({shape}): {agree}")
+            check(torch.equal(out_k, out_q), f"K8 {variant} differs from its plain version "
+                  f"({shape}): {float((out_k - out_q).abs().max())}")
             nbytes = pk_q.numel() * 4 + out_k.numel() * 4
+            # held to the instruction rate: every addition and product rounds alone
             row(f"K8 core_call {variant} {shape}", "recon3d_tpu_torch/csrc/grid_moments.cu",
-                "recon3d_tpu/ops/grid_knn_pallas.py:147", all_launches[path]["K8"],
-                float((out_k - out_q).abs().max()),
-                cuda_ms(lambda: grid_knn_cuda.core_call(pk_q, r2, G_, C_, fused), KERNEL_RUNS),
+                "recon3d_tpu/ops/grid_knn_pallas.py:147", all_launches[path]["K8"], 0.0,
+                kernel_times(lambda: grid_knn_cuda.core_call(pk_q, r2, G_, C_, fused), nbytes,
+                             KERNEL_RUNS),
                 cuda_ms(lambda: grid_knn.core_plain(pk_q, r2, G_, C_, fused), PLAIN_RUNS),
-                bound_ms(nbytes, k8_operations(pk_q, cnt, G_, C_, fused)), None,
-                library="none: no single PyTorch call computes it", grid=[G_, C_],
-                vs_plain=agree)
+                bound_ms(nbytes, k8_operations(pk_q, cnt, G_, C_, fused), F32_INSTR_PER_S),
+                None, library="none: no single PyTorch call computes it", grid=[G_, C_],
+                tile=list(grid_knn_cuda.k8_tile(G_, C_)), bitwise=True)
             del out_k, out_q, cnt
         del sp, start, pk_q
 
@@ -1492,14 +1602,15 @@ def main():
     s_k = project_sample_cuda.sample_images_cuda(vc, uc, imgs)
     s_q = project_sample.sample_images_plain(vc, uc, imgs)
     vcl, ucl = vc.long(), uc.long()
+    nbytes = vc.numel() * 8 + s_q.numel() * 4 + imgs.numel() * 4
     check(torch.equal(s_k, s_q), "K9 differs from its plain version")
     row("K9 sample_images_at", "recon3d_tpu_torch/csrc/project_sample.cu",
         "recon3d_tpu/ops/project_sample.py:131", all_launches["fusion"]["K9"],
         float((s_k - s_q).abs().max()),
-        cuda_ms(lambda: project_sample_cuda.sample_images_cuda(vc, uc, imgs), KERNEL_RUNS),
+        kernel_times(lambda: project_sample_cuda.sample_images_cuda(vc, uc, imgs), nbytes,
+                     KERNEL_RUNS),
         cuda_ms(lambda: project_sample.sample_images_plain(vc, uc, imgs), PLAIN_RUNS),
-        bound_ms(vc.numel() * 8 + s_q.numel() * 4 + imgs.numel() * 4, 0),
-        cuda_ms(lambda: imgs[:, vcl, ucl], KERNEL_RUNS),
+        bound_ms(nbytes, 0), run_ms(lambda: imgs[:, vcl, ucl], KERNEL_RUNS),
         library="advanced-index gather imgs[:, vc, uc] (the plain version itself)",
         shape=[*imgs.shape, fcfg.grid_resolution])
     del vc, uc, vcl, ucl, imgs, s_k, s_q, vol_k

@@ -39,11 +39,12 @@ SIGNATURES = {
     "r3d_vfinalize": [_P] * 5 + [_I] * 5 + [_F, _F] + [_I] * 4 + [_P],
     "r3d_tridiag": [_P] * 7 + [_I, _I, _I, _P],
     "r3d_resample": [_P] * 5 + [_I] * 4 + [_P],
+    "r3d_remap_two_pass": [_P] * 7 + [_I] * 4 + [_P],
     "r3d_diag_accumulate": [_P, _P, _I, _I, _I, _F, _F, _I, _P],
     "r3d_fwd_scan": [_P, _P, _I, _I, _I, _F, _F, _P],
     "r3d_down_accumulate": [_P, _P, _I, _I, _I, _F, _F, _P],
     "r3d_grid_pack": [_P, _P, _P, _I, _I, _P],
-    "r3d_grid_moments": [_P, _P, _I, _I, _F, _I, _P],
+    "r3d_grid_moments": [_P, _P, _I, _I, _F, _I, _I, _I, _I, _P],
     "r3d_project_sample": [_P] * 4 + [_L, _I, _I, _I, _P],
     "r3d_vscan_carry": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _I, _P],
     "r3d_diag_carry": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _I, _P],

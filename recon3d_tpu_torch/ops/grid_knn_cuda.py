@@ -13,9 +13,11 @@ recon3d_tpu/ops/grid_knn_pallas.py).
   accumulates, for every query slot, the 10 radius-ball moments over the
   occupied slots of the 27 neighboring cells and, with `fuse_eig`,
   normalizes them and solves the smallest eigenvector in the same thread,
-  writing [nx, ny, nz, cnt]. It adds in the plain version's order with one
-  rounding an operation (no contraction into fused multiply-adds), so it
-  agrees with `grid_knn.core_plain` bitwise.
+  writing [nx, ny, nz, cnt]. A block owns a cube of cells (`k8_tile`),
+  writes the empty slots' rows at once and stages the cube's halo only
+  when it holds an occupied slot. It adds in the plain version's order
+  with one rounding an operation (no contraction into fused multiply-adds),
+  so it agrees with `grid_knn.core_plain` bitwise.
 - `packed_chan_readback` gathers each point's row by its slot, in torch.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
@@ -60,6 +62,34 @@ def bin_points_packed_cuda(p: torch.Tensor, valid: torch.Tensor, radius, grid_si
             overflow)
 
 
+# K8's shared memory a block may take (csrc/grid_moments.cu: kK8MaxSmem), the
+# most it should take so that three blocks share an SM, and its hit lists (256
+# threads x kHits 16-bit entries)
+K8_MAX_SMEM, K8_SMEM_TARGET, K8_HIT_LISTS = 226 * 1024, 75 * 1024, 256 * 64 * 2
+
+
+def k8_smem_bytes(tile, C: int) -> int:
+    """Shared memory of a K8 block on tiles of `tile` = (tx, ty, tz) cells
+    (csrc/grid_moments.cu:k8_smem_bytes): the staged halo, the halo counts,
+    the query list and the hit lists."""
+    tx, ty, tz = tile
+    hc, tq = (tx + 2) * (ty + 2) * (tz + 2), tx * ty * tz * C
+    S = C + 1 if C % 2 == 0 else C
+    return hc * S * 16 + hc * 4 + tq * 4 + K8_HIT_LISTS
+
+
+def k8_tile(G: int, C: int):
+    """The cube of cells a K8 block owns: edge 4 (at C = 8 a row of 4 z-cells
+    is 32 slots), smaller while a block would take more than
+    K8_SMEM_TARGET, and edge 1 up to K8_MAX_SMEM; raises when not even one
+    cell fits."""
+    for t in (4, 3, 2, 1):
+        tile = (min(t, G),) * 3
+        if k8_smem_bytes(tile, C) <= (K8_SMEM_TARGET if t > 1 else K8_MAX_SMEM):
+            return tile
+    raise ValueError(f"K8 stages a cell's 27 neighbors in shared memory: C = {C} is too large")
+
+
 def core_call(pk: torch.Tensor, r2: float, G: int, C: int, fuse_eig: bool) -> torch.Tensor:
     """K8 on the packed table: (G^3 * C, 10) moments, or with `fuse_eig`
     (G^3 * C, 4) [nx, ny, nz, cnt]; r2 is the squared radius (a runtime
@@ -73,7 +103,7 @@ def core_call(pk: torch.Tensor, r2: float, G: int, C: int, fuse_eig: bool) -> to
     out = torch.empty((pk.shape[0], 4 if fuse_eig else 10), dtype=torch.float32,
                       device=pk.device)
     kernels.launch("r3d_grid_moments", pk.device, kernels.ptr(pk), kernels.ptr(out), G, C,
-                   float(r2), int(fuse_eig))
+                   float(r2), int(fuse_eig), *k8_tile(G, C))
     core_call.launches += 1
     return out
 

@@ -9,10 +9,10 @@ exactly as the JAX package's passes do (with the fused multiply-add XLA
 forms for the interpolation), so both warps agree bitwise.
 
 `remap_two_pass` is the plain version: the JAX package's roll ladder and
-plane sweep in PyTorch. `remap_two_pass_cuda` is the kernel path: two
-calls of `resample_pass`, the wrapper of K1 (csrc/warp_resample.cu), which
-launches the kernel for CUDA tensors and runs the plain pass for CPU
-tensors.
+plane sweep in PyTorch. `remap_two_pass_cuda` is the kernel path: K1
+(csrc/warp_resample.cu) runs both passes in one launch for CUDA tensors;
+CPU tensors take the plain version. `resample_pass` is one pass alone, on
+its own kernel in the same source.
 """
 from __future__ import annotations
 
@@ -165,7 +165,7 @@ def remap_two_pass_batch(srcs: torch.Tensor, plan: RemapPlan) -> torch.Tensor:
 
 def resample_pass(src: torch.Tensor, coord: torch.Tensor, coarse: torch.Tensor, bits: int,
                   resid_bound: int, axis: int, valid: torch.Tensor | None = None) -> torch.Tensor:
-    """K1: one 1-D resampling pass of the two-pass warp along `axis` (0:
+    """K1's one-pass form: one 1-D resampling pass along `axis` (0:
     per-column shifts coarse (W,), 1: per-row shifts (H,)), zero where
     `valid` is False. src and coord (H, W) f32; any (H, W), no alignment
     needed. `bits` only sizes the plain version's roll ladder."""
@@ -195,10 +195,30 @@ resample_pass.launches = 0
 
 
 def remap_two_pass_cuda(src: torch.Tensor, plan: RemapPlan) -> torch.Tensor:
-    """The kernel path of remap_two_pass: K1's vertical pass, then its
-    horizontal pass with plan.valid applied (two launches for CUDA tensors,
-    the plain version for CPU tensors)."""
-    t = resample_pass(src.to(torch.float32), plan.vy, plan.v_coarse, plan.v_coarse_bits,
-                      plan.v_resid_bound, 0)
-    return resample_pass(t, plan.hx, plan.h_coarse, plan.h_coarse_bits, plan.h_resid_bound, 1,
-                         plan.valid)
+    """The kernel path of remap_two_pass: K1's fused kernel, both passes and
+    plan.valid in one launch for CUDA tensors (the intermediate never
+    reaches device memory); the plain version for CPU tensors. The plan's
+    tensors are used as build_remap_plan made them (typed, contiguous)."""
+    if src.shape != plan.vy.shape:
+        raise ValueError(f"remap_two_pass takes an (H, W) image of the plan's shape "
+                         f"{tuple(plan.vy.shape)}, got {tuple(src.shape)}")
+    if not kernels.use_kernel(src, plan.vy):
+        return remap_two_pass(src, plan)
+    typed = ((plan.vy, torch.float32), (plan.hx, torch.float32), (plan.valid, torch.bool),
+             (plan.v_coarse, torch.int32), (plan.h_coarse, torch.int32))
+    if any(a.device != src.device or a.dtype != t or not a.is_contiguous() for a, t in typed):
+        raise ValueError("the plan's tensors must be contiguous, on the image's device and "
+                         "typed as build_remap_plan makes them")
+    if src.dtype != torch.float32 or not src.is_contiguous():
+        src = src.to(torch.float32).contiguous()
+    out = torch.empty(src.shape, dtype=torch.float32, device=src.device)
+    H, W = src.shape
+    kernels.launch("r3d_remap_two_pass", src.device, src.data_ptr(), plan.vy.data_ptr(),
+                   plan.hx.data_ptr(), plan.v_coarse.data_ptr(), plan.h_coarse.data_ptr(),
+                   plan.valid.data_ptr(), out.data_ptr(), H, W, plan.v_resid_bound,
+                   plan.h_resid_bound)
+    remap_two_pass_cuda.launches += 1
+    return out
+
+
+remap_two_pass_cuda.launches = 0

@@ -1,11 +1,15 @@
 """On-card checks of the port's kernels against their plain versions at
-shapes chip_smoke.py does not drive: an unaligned warp, D = 256, wide and
+shapes chip_smoke.py does not drive: the fused warp (K1, one launch a
+remap) and its one-pass form on unaligned shapes and at 1080p with taps
+that wrap, D = 256, wide and
 tall volumes (K5 and K11's helix walkers wrapping round three times), 3, 4
 and 8 directions, a nonzero min_disparity, K2 at block sizes 1 to 11 with and
 without its downward path, K6 on ragged and clamped planes (bitwise),
 DepthPipeline on the card against
 itself on the CPU, backend 'auto' on the card, K7 (bitwise, overflow
-included) and K8 (bitwise, both variants) on small grids, the grid
+included) and K8 (bitwise, both variants) on small grids, on hand-made
+tables (holes between occupied slots, empty, full), at C = 1 to 32 with
+edge tiles and at scan_post's sparse G = 128, the grid
 normals on the card against the CPU, K9 on any shape, the fusion and
 meshing slice on the card against the CPU (bitwise), K10-K12 on small
 shards (both directions, dead rows below h_real, the public mirrors leaving
@@ -33,6 +37,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tests import _grid_tables
 from recon3d_tpu_torch.camera.fake import FakeStereoCamera, SyntheticRGBDCamera
 from recon3d_tpu_torch.config import StereoMatcherConfig
 from recon3d_tpu_torch.depth import (DepthPipeline, compute_disparity, sgm_cuda, sgm_sharded,
@@ -64,15 +69,38 @@ def _pair(H, W, seed=1):
 
 @pytest.mark.parametrize("H,W,shift", [(61, 133, 0.0), (64, 256, 20.0), (200, 96, -7.5)])
 def test_k1_matches_plain_on_any_shape(dev, H, W, shift):
+    """The fused K1 (one launch a remap) and its one-pass form, on odd
+    shapes (the scalar path) and aligned ones."""
     mx, my = chip_smoke.synthetic_maps(H, W)
     plan = warp.build_remap_plan(mx + np.float32(shift), my, device=dev)
     img = torch.rand((H, W), generator=torch.Generator().manual_seed(H), dtype=torch.float32)
     img = (img * 255).to(dev)
-    before = warp.resample_pass.launches
+    before, passes = warp.remap_two_pass_cuda.launches, warp.resample_pass.launches
     out = warp.remap_two_pass_cuda(img, plan)
     torch.cuda.synchronize()
-    assert warp.resample_pass.launches == before + 2
+    assert warp.remap_two_pass_cuda.launches == before + 1
+    assert warp.resample_pass.launches == passes
     assert torch.equal(out, warp.remap_two_pass(img, plan))
+    t = warp.resample_pass(img, plan.vy, plan.v_coarse, plan.v_coarse_bits, plan.v_resid_bound, 0)
+    args = (plan.hx, plan.h_coarse, plan.h_coarse_bits, plan.h_resid_bound, 1, plan.valid)
+    assert torch.equal(t, warp.resample_pass_plain(img, plan.vy, plan.v_coarse,
+                                                   plan.v_coarse_bits, plan.v_resid_bound, 0))
+    assert torch.equal(warp.resample_pass(t, *args), warp.resample_pass_plain(t, *args))
+    assert warp.resample_pass.launches == passes + 2
+
+
+@pytest.mark.parametrize("shift", [0.0, 20.5, -20.5])
+def test_k1_fused_matches_plain_at_1080p(dev, shift):
+    """The fused K1 at the headline's 1080p plan, shifted so that the right
+    or the left edge samples beyond the source (wrapped taps, masked)."""
+    H, W = 1080, 1920
+    mx, my = chip_smoke.synthetic_maps(H, W)
+    plan = warp.build_remap_plan(mx + np.float32(shift), my, device=dev)
+    rng = np.random.RandomState(3)
+    img = torch.tensor((rng.rand(H, W) * 255).astype(np.float32), device=dev)
+    out = warp.remap_two_pass_cuda(img, plan)
+    assert torch.equal(out, warp.remap_two_pass(img, plan))
+    assert bool((out[~plan.valid] == 0).all()) and float(plan.valid.float().mean()) > 0.9
 
 
 @pytest.mark.parametrize("H,W,D,bs,md", [(64, 384, 16, 5, 0), (192, 128, 160, 5, 0),
@@ -245,6 +273,43 @@ def test_k8_matches_plain(dev, fused, n, G, C, r):
     cnt = 3 if fused else 0
     assert torch.equal(out[:, cnt], ref[:, cnt]) and float(out[:, cnt].max()) > 3
     assert torch.equal(out, ref), float((out - ref).abs().max())
+
+
+def _k8_both(pk, G, C, r2):
+    """K8's two variants on the card against core_plain, bitwise, one launch
+    each."""
+    for fused in (False, True):
+        before = grid_knn_cuda.core_call.launches
+        out = grid_knn_cuda.core_call(pk, r2, G, C, fused)
+        torch.cuda.synchronize()
+        assert grid_knn_cuda.core_call.launches == before + 1
+        ref = grid_knn.core_plain(pk, r2, G, C, fused)
+        assert torch.equal(out, ref), (fused, float((out - ref).abs().max()))
+
+
+@pytest.mark.parametrize("G,C,kind", [(6, 8, "holes"), (5, 3, "empty"), (6, 8, "full"),
+                                      (5, 1, "holes"), (7, 16, "full")])
+def test_k8_hand_made_tables(dev, G, C, kind):
+    """Tables with holes between occupied slots (and stray coordinates in
+    the empty ones), an all-empty table (every row the empty-slot row) and
+    full ones; C = 1 and odd G."""
+    pk = torch.tensor(_grid_tables.table(G, C, kind, seed=G * C), device=dev)
+    _k8_both(pk, G, C, _grid_tables.R2)
+
+
+@pytest.mark.parametrize("C", [1, 3, 8, 16, 32])
+def test_k8_capacities(dev, C):
+    """Every capacity the staging handles differently: a cell a lane group
+    (C = 1, 3, 8, 16), a whole warp (32); edge tiles cut by G = 11."""
+    pk = torch.tensor(_grid_tables.table(11, C, "holes", seed=C), device=dev)
+    assert 11 % grid_knn_cuda.k8_tile(11, C)[0] != 0
+    _k8_both(pk, 11, C, _grid_tables.R2)
+
+
+def test_k8_at_the_scan_post_shape(dev):
+    """G = 128, C = 8 with 1500 occupied cells: nearly every tile empty."""
+    pk = torch.tensor(_grid_tables.sparse_table(128, 8, 1500, seed=5), device=dev)
+    _k8_both(pk, 128, 8, _grid_tables.R2)
 
 
 def test_grid_normals_on_card_match_cpu(dev):

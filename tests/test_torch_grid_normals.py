@@ -39,6 +39,7 @@ from recon3d_tpu_torch.pointcloud import backproject
 from recon3d_tpu_torch.pointcloud import normals as tn
 from recon3d_tpu_torch.utils import io as tio
 from recon3d_tpu_torch.utils import types
+from tests import _grid_tables
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -135,6 +136,60 @@ def test_moments_match_jax(seed, n, scale, G, C, pallas):
     np.testing.assert_array_equal(nx.numpy(), np.asarray(n0))
     np.testing.assert_allclose(mx.numpy(), np.asarray(m0), atol=1e-5)
     np.testing.assert_allclose(cx.numpy(), c0, atol=1e-5)
+
+
+def _pk_to_jax(pk, G, C):
+    """The port's (G^3 * C, 4) table in the JAX kernel's (G, 4C, G * G)
+    layout (lane stride gz = G)."""
+    return np.ascontiguousarray(pk.reshape(G, G, G, C, 4).transpose(0, 4, 3, 1, 2)).reshape(
+        G, 4 * C, G * G)
+
+
+def _rows_from_jax(out, G, C, ch):
+    """A JAX kernel's (G, ch * C, G * G) output as the port's (G^3 * C, ch) rows."""
+    return np.asarray(out).reshape(G, ch, C, G, G).transpose(0, 3, 4, 2, 1).reshape(-1, ch)
+
+
+@pytest.mark.parametrize("G,C,kind", [(4, 8, "holes"), (4, 8, "empty"), (4, 8, "full"),
+                                      (5, 1, "holes")])
+def test_k8_core_matches_pallas_on_hand_made_tables(G, C, kind):
+    """K8's plain version (the wrapper's CPU route) against the JAX kernels
+    in interpret mode on hand-made tables: occupied slots between empty
+    ones (whose stray coordinates must not count), an all-empty table, a
+    full one, C = 1 at an odd G. The coordinates make every sum exact, so
+    the moments agree bitwise whatever the order of the sums; the fused
+    rows are the port's finish of those moments, the counts and the
+    empty-slot rows bitwise, the normals within the bar where the
+    neighborhood's two smallest eigenvalues are apart."""
+    pk = _grid_tables.table(G, C, kind, seed=G * C)
+    r2 = _grid_tables.R2
+    jpk = jnp.asarray(_pk_to_jax(pk, G, C))
+    jm = _rows_from_jax(jgkp.moments_pallas_core(jpk, r2, G, C, interpret=True), G, C, 10)
+    jn = _rows_from_jax(jgkp.normals_pallas_core(jpk, r2, G, C, interpret=True), G, C, 4)
+    m = grid_knn_cuda.moments_core(torch.tensor(pk), r2, G, C).numpy()
+    n = grid_knn_cuda.normals_core(torch.tensor(pk), r2, G, C).numpy()
+    np.testing.assert_array_equal(m, jm)
+    np.testing.assert_array_equal(n[:, 3], jn[:, 3])
+    np.testing.assert_array_equal(n, grid_knn.normals_from_moments(torch.tensor(jm)).numpy())
+    empty = pk[:, 3] == 0
+    np.testing.assert_array_equal(n[empty], jn[empty])
+    assert (n[empty] == np.float32([0.0, 0.0, 1.0, 0.0])).all() and (m[empty] == 0).all()
+    occ = pk[:, 3].reshape(-1, C)
+    if kind == "empty":
+        assert empty.all()
+        return
+    assert m[:, 0].max() >= 5 and (occ.all() if kind == "full" else
+                                   (np.diff(occ, axis=1) > 0).any() or C == 1)
+    mean = m[:, 1:4].astype(np.float64) / np.maximum(m[:, :1], 1)
+    sec = m[:, 4:].astype(np.float64) / np.maximum(m[:, :1], 1)
+    iu = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
+    cov = np.zeros((len(m), 3, 3))
+    for k, (i, j) in enumerate(iu):
+        cov[:, i, j] = cov[:, j, i] = sec[:, k] - mean[:, i] * mean[:, j]
+    ev = np.linalg.eigvalsh(cov)
+    well = (m[:, 0] >= 5) & (ev[:, 1] > 2 * ev[:, 0])
+    dots = np.abs((n[well, :3] * jn[well, :3]).sum(1))
+    assert well.any() and dots.min() > 0.9999, dots.min()
 
 
 def test_core_variants_and_readback():

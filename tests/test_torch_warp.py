@@ -95,11 +95,35 @@ def test_plain_warp_matches_xla_and_pallas(kind):
     np.testing.assert_allclose(out, ref_xla, atol=1e-5)
     np.testing.assert_allclose(out, ref_pallas, atol=1e-5)
     # the kernel wrapper takes the plain version for CPU tensors, uncounted
-    before = warp.resample_pass.launches
+    before = warp.remap_two_pass_cuda.launches, warp.resample_pass.launches
     np.testing.assert_array_equal(warp.remap_two_pass_cuda(torch.tensor(img), tp).numpy(), out)
-    assert warp.resample_pass.launches == before
+    assert (warp.remap_two_pass_cuda.launches, warp.resample_pass.launches) == before
     invalid = ~np.asarray(jp.valid)
     assert invalid.any() and (out[invalid] == 0.0).all()
+
+
+@pytest.mark.parametrize("shift", [20.5, -20.5])
+def test_plain_warp_matches_pallas_where_taps_wrap(shift):
+    """remap_two_pass (and the kernel path's CPU route) against
+    remap_two_pass_pallas in interpret mode, bitwise, on a plan shifted
+    half a pixel past 20: the horizontal taps at one edge fall outside the
+    row and wrap round it (the rolls' mod n), where plan.valid masks them."""
+    H, W = 64, 256
+    mx, my = _maps(H, W, "bench")
+    mx = mx + np.float32(shift)
+    img = _image(H, W, seed=4)
+    jp = jwarp.build_remap_plan(mx, my)
+    tp = warp.build_remap_plan(mx, my, device="cpu")
+    taps = (np.arange(W)[None, :] + tp.h_coarse.numpy()[:, None]
+            + np.floor(mx - np.arange(W)[None, :] - tp.h_coarse.numpy()[:, None]))
+    assert ((taps < 0) | (taps + 1 >= W)).any()
+    ref = np.asarray(jwarp.remap_two_pass_pallas(jnp.asarray(img), jp, interpret=True))
+    out = warp.remap_two_pass(torch.tensor(img), tp).numpy()
+    np.testing.assert_array_equal(out, ref)
+    before = warp.remap_two_pass_cuda.launches
+    np.testing.assert_array_equal(warp.remap_two_pass_cuda(torch.tensor(img), tp).numpy(), ref)
+    assert warp.remap_two_pass_cuda.launches == before
+    assert (out[~tp.valid.numpy()] == 0.0).all()
 
 
 def test_plain_warp_matches_xla_on_unaligned_shape():
