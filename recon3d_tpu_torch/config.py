@@ -1,5 +1,5 @@
-"""Matcher, WLS, point-cloud processing, fusion and meshing configuration
-(twin of recon3d_tpu/config.py:19-115, 128-140, 160-178).
+"""Matcher, WLS, point-cloud processing, registration, fusion and meshing
+configuration (twin of recon3d_tpu/config.py:19-115, 128-178).
 
 Frozen dataclasses with the reference's defaults. The only difference from
 the JAX package is the `backend` vocabulary: 'cuda' is the hand-written
@@ -107,6 +107,23 @@ class ProcessingConfig:
     normal_max_nn: int = 50  # normal_estimation.py:20
     normal_radius: float = 0.05  # :20
     capacity: int = 1 << 18  # static point buffer capacity
+
+
+@dataclasses.dataclass(frozen=True)
+class RegistrationConfig:
+    """Alignment settings (reference: pointcloud_alignment.py:22-40, mini1.py:263-341)."""
+
+    voxel_size: float = 0.02
+    icp_threshold: float = 0.02
+    icp_max_iterations: int = 100
+    icp_rel_fitness: float = 1e-6
+    icp_rel_rmse: float = 1e-6
+    # point_to_point | point_to_plane | gicp | ransac_fpfh | fgr | odometry
+    method: str = "point_to_point"
+    fitness_min: float = 0.3  # quality gate (check6.py:65-76)
+    rmse_max: float = 0.02
+    ransac_max_iterations: int = 100_000  # mini1.py uses 4e6; trials are batched
+    ransac_confidence: float = 0.999
 
 
 @dataclasses.dataclass(frozen=True)

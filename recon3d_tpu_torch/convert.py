@@ -5,9 +5,11 @@ point-cloud processing, fusion and meshing configuration (passed as
 ``dataclasses.asdict`` dicts of the JAX package's configs), the 4x4
 reprojection matrix Q, optionally the pinhole intrinsics as a 3x3 K, the
 stereo calibration (`stereo_params`), the two-pass warp plans
-(`remap_plan`), point clouds (`point_cloud`), TSDF volumes (`tsdf_volume`)
-and triangle meshes (`triangle_mesh`); all arrive as plain Python / numpy. The JAX backends map
-onto the port's: 'pallas' -> 'cuda', 'xla' -> 'torch'.
+(`remap_plan`), point clouds (`point_cloud`), TSDF volumes (`tsdf_volume`),
+triangle meshes (`triangle_mesh`), RGB-D frames (`rgbd_image`), pinhole
+intrinsics (`camera_intrinsics`) and pose graphs (`pose_graph`); all arrive
+as plain Python / numpy. The JAX backends map onto the port's: 'pallas' ->
+'cuda', 'xla' -> 'torch'.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from recon3d_tpu_torch.config import (FusionConfig, MeshConfig, ProcessingConfig
                                       StereoMatcherConfig, WLSConfig)
 from recon3d_tpu_torch.fusion.tsdf import TSDFVolume
 from recon3d_tpu_torch.ops.warp import RemapPlan
-from recon3d_tpu_torch.utils.types import CameraIntrinsics, PointCloud, TriangleMesh
+from recon3d_tpu_torch.registration.posegraph import PoseGraph
+from recon3d_tpu_torch.utils.types import CameraIntrinsics, PointCloud, RGBDImage, TriangleMesh
 
 _BACKENDS = {"auto": "auto", "pallas": "cuda", "xla": "torch"}
 
@@ -121,3 +124,31 @@ def triangle_mesh(arrays: dict, device="cuda") -> TriangleMesh:
                         triangle_valid=_put(arrays, "triangle_valid", bool, device),
                         vertex_colors=_put(arrays, "vertex_colors", np.float32, device),
                         vertex_normals=_put(arrays, "vertex_normals", np.float32, device))
+
+
+def rgbd_image(color, depth, device="cuda") -> RGBDImage:
+    """The port's RGBDImage from numpy color (H, W, 3) (uint8 or float32,
+    kept as given) and depth (H, W) in meters (as float32), on `device`."""
+    color = np.asarray(color)
+    return RGBDImage(color=torch.as_tensor(color.copy(), device=device),
+                     depth=torch.as_tensor(np.array(depth, np.float32), device=device))
+
+
+def camera_intrinsics(fx, fy, cx, cy) -> CameraIntrinsics:
+    """The port's CameraIntrinsics from four numbers (Python floats or the
+    JAX one's 0-d float32 arrays), each rounded to float32 as the JAX
+    package holds them."""
+    return CameraIntrinsics(*(float(np.float32(v)) for v in (fx, fy, cx, cy)))
+
+
+def pose_graph(nodes, edges) -> PoseGraph:
+    """The port's PoseGraph from the JAX one's node poses (4x4 arrays) and
+    edges (``dataclasses.asdict`` dicts: source, target, transformation,
+    information, uncertain)."""
+    g = PoseGraph()
+    for pose in nodes:
+        g.add_node(np.asarray(pose, np.float64))
+    for e in edges:
+        g.add_edge(int(e["source"]), int(e["target"]), e["transformation"], e["information"],
+                   bool(e["uncertain"]))
+    return g

@@ -1,6 +1,7 @@
 """Voxel-grid binning for large-N neighborhoods: the plain versions (twin of
 recon3d_tpu/ops/grid_knn.py: `_sort_cells`, `_point_slot_from_sorted`,
-`_bin_points_packed`, `grid_pca_moments`).
+`_bin_points_packed`, `grid_pca_moments`, `grid_knn`,
+`grid_nearest_neighbor`).
 
 Points are binned into a dense (G^3, C) cell table with cell edge = radius,
 so a radius ball around any point lies inside its 27 neighboring cells.
@@ -15,14 +16,27 @@ occupied); with gz = G the sort order, ranks and overflow are the same.
 Its (G, 4C, G * gz) layout maps onto this one by
 `pk_jax.reshape(G, 4, C, G, gz)[..., :G].permute(0, 3, 4, 2, 1)`.
 
+The neighbor searches (`grid_knn`, `grid_nearest_neighbor`) read the
+table through the sorted points: slot (cell, c) is sorted position
+start[cell] + c while that lies inside the cell's run, so no table is
+scattered and no scatter ever meets duplicate indices. Each kept query
+gathers the C slots of its 27 neighboring cells in `_neighbor_offsets`
+order; a neighbor cell off the grid is masked with BIG, as the JAX
+package's rolled table masks the cells that wrapped around. The first
+minimum over (offset, slot) is the candidate the JAX package's strict
+running minimum over the offsets keeps.
+
 The hand-written kernels that replace `_bin_points_packed`'s placement
 (K7) and the moments / normals core (K8) live in ops/grid_knn_cuda.py.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
+
+from recon3d_tpu_torch.ops.image import fma
+from recon3d_tpu_torch.ops.knn import smallest_k
 
 BIG = 1e30
 
@@ -31,7 +45,13 @@ def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def _sort_cells(p: torch.Tensor, valid: torch.Tensor, radius, G: int, C: int):
+class GridKNNResult(NamedTuple):
+    indices: torch.Tensor  # (N, k) int32 into the original point order
+    sq_dists: torch.Tensor  # (N, k) float32, BIG where no neighbor
+    overflow_fraction: torch.Tensor  # 0-d float32: points dropped from cells
+
+
+def _sort_cells(p: torch.Tensor, valid: torch.Tensor, radius, G: int, C: int, lo=None):
     """Points sorted by cell id (stable: within a cell, original order),
     the per-cell start offsets and the per-sorted-point rank.
 
@@ -39,12 +59,14 @@ def _sort_cells(p: torch.Tensor, valid: torch.Tensor, radius, G: int, C: int):
     (G^3 = out of grid or invalid), sorted points, the sorting permutation,
     start[c] = first sorted position with cell id >= c (G^3 + 1 entries),
     ok = the point got a slot (rank < C, in grid), rank within the cell and
-    the share of in-grid points that got no slot."""
+    the share of in-grid points that got no slot. `lo` (3,): the grid's
+    origin, by default the valid points' min corner less half a cell."""
     N = p.shape[0]
     dev = p.device
     n_cells = G * G * G
     r = _f32(radius, dev)
-    lo = torch.where(valid[:, None], p, BIG).min(dim=0).values - 0.5 * r
+    if lo is None:
+        lo = torch.where(valid[:, None], p, BIG).min(dim=0).values - 0.5 * r
     cell = torch.floor((p - lo) / r).to(torch.int32)  # a true divide, as the JAX package
     inb = ((cell >= 0) & (cell < G)).all(dim=1) & valid
     cell = torch.clamp(cell, 0, G - 1)
@@ -179,3 +201,99 @@ def grid_pca_moments(points: torch.Tensor, valid: torch.Tensor, radius,
         torch.stack([m2[:, 4] - mx * mz, m2[:, 5] - my * mz, m2[:, 2] - mz * mz], -1),
     ], -2)
     return n, mean, cov
+
+
+def _offsets(device) -> torch.Tensor:
+    return torch.tensor(_neighbor_offsets(), dtype=torch.int32, device=device)
+
+
+def _neighbor_candidates(cell: torch.Tensor, q: torch.Tensor, sp: torch.Tensor,
+                         order: torch.Tensor, start: torch.Tensor, G: int, C: int):
+    """For queries in cells `cell` (n, 3) at points q (n, 3): the C slots of
+    each of the 27 neighboring cells of the binned set (sp, order, start),
+    flattened (offset, slot) to 27 * C columns. Returns (d2 (n, 27C) with
+    BIG where the slot is empty or its cell is off the grid, the candidates'
+    original indices (n, 27C), the (0, 0, 0) offset's column block start)."""
+    nb = cell[:, None, :] + _offsets(cell.device)[None]  # (n, 27, 3)
+    off_grid = ((nb < 0) | (nb >= G)).any(dim=-1)
+    nb = nb.clamp(0, G - 1)
+    nid = ((nb[..., 0] * G + nb[..., 1]) * G + nb[..., 2]).long()
+    pos = start[nid][..., None] + torch.arange(C, dtype=start.dtype, device=start.device)
+    empty = (pos >= start[nid + 1][..., None]) | off_grid[..., None]  # (n, 27, C)
+    pos = pos.clamp(max=max(sp.shape[0] - 1, 0)).long()
+    d = q[:, None, None, :] - sp[pos]
+    # the sum of squares as XLA's fused reduction of three rounds it
+    d2 = fma(d[..., 2], d[..., 2], fma(d[..., 1], d[..., 1], d[..., 0] * d[..., 0]))
+    d2 = torch.where(empty, BIG, d2)
+    n = cell.shape[0]
+    return d2.reshape(n, 27 * C), order[pos].reshape(n, 27 * C), 13 * C
+
+
+def _cells_of_sorted(sc: torch.Tensor, G: int) -> torch.Tensor:
+    """(x, y, z) of cell ids (in-grid ids only are meaningful)."""
+    return torch.stack([sc // (G * G), (sc // G) % G, sc % G], -1)
+
+
+def grid_knn(points: torch.Tensor, valid: torch.Tensor, radius, k: int = 30,
+             grid_size: int = 64, cell_capacity: int = 8) -> GridKNNResult:
+    """Approximate k-NN (excluding self) among neighbors within ~radius.
+
+    Exact for every neighbor pair closer than `radius` when neither point
+    overflows its cell; farther pairs (up to 2 sqrt(3) radius) may be found
+    but are not guaranteed. ops/knn.py's contract otherwise: (indices
+    (N, k), sq_dists (N, k)), ascending, ties to the earlier candidate in
+    (offset, slot) order, BIG and index 0 where fewer than k were found."""
+    p = points.to(torch.float32)
+    G, C = grid_size, cell_capacity
+    dev = p.device
+    sc, sp, order, start, ok, rank, overflow = _sort_cells(p, valid, radius, G, C)
+    rows = ok.nonzero()[:, 0]  # the sorted points that hold a slot
+    d2, idx, self_block = _neighbor_candidates(_cells_of_sorted(sc[rows], G), sp[rows], sp,
+                                               order, start, G, C)
+    n = rows.shape[0]
+    ar = torch.arange(n, device=dev)
+    d2[ar, self_block + rank[rows].long()] = BIG  # the query's own slot
+    # k placeholders (BIG, index 0) ahead of the candidates: lax.top_k's
+    # running merge keeps them before any masked candidate
+    d2 = torch.cat([torch.full((n, k), BIG, dtype=torch.float32, device=dev), d2], 1)
+    idx = torch.cat([torch.zeros((n, k), dtype=idx.dtype, device=dev), idx], 1)
+    vals, cols = smallest_k(d2, k)
+    out_d = torch.full((p.shape[0], k), BIG, dtype=torch.float32, device=dev)
+    out_i = torch.zeros((p.shape[0], k), dtype=torch.int32, device=dev)
+    orig = order[rows].long()
+    out_d[orig] = vals
+    out_i[orig] = torch.gather(idx, 1, cols).to(torch.int32)
+    out_d = torch.where(out_d >= BIG, BIG, torch.clamp(out_d, min=0.0))
+    return GridKNNResult(out_i, out_d, overflow)
+
+
+def grid_nearest_neighbor(query: torch.Tensor, query_valid: torch.Tensor, db: torch.Tensor,
+                          db_valid: torch.Tensor, radius, grid_size: int = 64,
+                          cell_capacity: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-set 1-NN among db points within ~radius: ICP's large-cloud
+    correspondence search. Returns (indices (Nq,) int32, sq_dists (Nq,));
+    a query with no candidate, or that is invalid or lost its own cell slot,
+    gets sq_dist BIG and index 0 (ICP's threshold rejects it, as on the
+    brute-force path). Queries and db are binned on one shared origin so
+    their cells align. One host sync: the count of kept queries."""
+    qp = query.to(torch.float32)
+    dp = db.to(torch.float32)
+    G, C = grid_size, cell_capacity
+    dev = qp.device
+    r = _f32(radius, dev)
+    both = torch.cat([torch.where(query_valid[:, None], qp, BIG),
+                      torch.where(db_valid[:, None], dp, BIG)])
+    lo = both.min(dim=0).values - 0.5 * r
+    q_sc, q_sp, q_order, _, q_ok, _, _ = _sort_cells(qp, query_valid, radius, G, C, lo=lo)
+    _, d_sp, d_order, d_start, _, _, _ = _sort_cells(dp, db_valid, radius, G, C, lo=lo)
+    rows = q_ok.nonzero()[:, 0]
+    d2, idx, _ = _neighbor_candidates(_cells_of_sorted(q_sc[rows], G), q_sp[rows], d_sp,
+                                      d_order, d_start, G, C)
+    md, mi = torch.min(d2, dim=1)  # the first minimum in (offset, slot) order
+    best_i = torch.where(md < BIG, torch.gather(idx, 1, mi[:, None])[:, 0], 0)
+    out_d = torch.full((qp.shape[0],), BIG, dtype=torch.float32, device=dev)
+    out_i = torch.zeros((qp.shape[0],), dtype=torch.int32, device=dev)
+    orig = q_order[rows].long()
+    out_d[orig] = md
+    out_i[orig] = best_i.to(torch.int32)
+    return out_i, torch.where(query_valid, out_d, BIG)

@@ -1,6 +1,8 @@
-"""Dense image ops on the depth path (twin of recon3d_tpu/ops/image.py:
-`rgb_to_gray`, `normalize_minmax`, `colormap_jet`, `bilinear_sample`,
-`remap`), and `matmul3`, the 3x3 product as the JAX package rounds it.
+"""Dense image ops on the depth and odometry paths (twin of
+recon3d_tpu/ops/image.py: `rgb_to_gray`, `normalize_minmax`, `colormap_jet`,
+`gaussian_blur`, `central_gradients`, `bilinear_sample`, `remap`,
+`sweep_bilinear_stack`, `pyramid`), and `matmul3`, the 3x3 product as the
+JAX package rounds it.
 
 Where the JAX package computes a * b + c, XLA contracts it into one fused
 multiply-add; `fma` computes that single rounding, so the port's bilinear
@@ -9,6 +11,7 @@ sums agree with the JAX package's bit for bit.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def rgb_to_gray(img: torch.Tensor, order: str = "rgb") -> torch.Tensor:
@@ -34,6 +37,63 @@ def colormap_jet(norm01: torch.Tensor) -> torch.Tensor:
     g = torch.clamp(torch.minimum(four - 0.5, -four + 3.5), 0.0, 1.0)
     b = torch.clamp(torch.minimum(four + 0.5, -four + 2.5), 0.0, 1.0)
     return torch.stack([r, g, b], -1)
+
+
+def _gaussian_kernel1d(ksize: int, sigma: float, device=None) -> torch.Tensor:
+    if sigma <= 0:
+        # OpenCV's default sigma from the kernel size
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    x = torch.arange(ksize, dtype=torch.float32, device=device) - (ksize - 1) / 2.0
+    k = torch.exp(-(x * x) / (2.0 * sigma * sigma))
+    return k / torch.sum(k)
+
+
+def _conv_taps(xp: torch.Tensor, k: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """Valid 1-D correlation of xp with the taps k along `dim` (n outputs)."""
+    out = None
+    for i in range(k.shape[0]):
+        term = k[i] * xp.narrow(dim, i, n)
+        out = term if out is None else out + term
+    return out
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int = 5, sigma: float = 0.0) -> torch.Tensor:
+    """Separable Gaussian blur with reflect-101 borders (cv2.GaussianBlur
+    default) of an (H, W) or (H, W, C) image: the rows' pass, then the
+    columns'."""
+    x = img.to(torch.float32)
+    squeeze = x.ndim == 2
+    if squeeze:
+        x = x[..., None]
+    k = _gaussian_kernel1d(ksize, sigma, x.device)
+    H, W = x.shape[0], x.shape[1]
+    pad = ksize // 2
+    xc = x.permute(2, 0, 1)[None]  # (1, C, H, W): reflect pads the last two dims
+    xp = F.pad(xc, (0, 0, pad, pad), mode="reflect")
+    xc = _conv_taps(xp, k, 2, H)
+    xp = F.pad(xc, (pad, pad, 0, 0), mode="reflect")
+    out = _conv_taps(xp, k, 3, W)[0].permute(1, 2, 0)
+    return out[..., 0] if squeeze else out
+
+
+def central_gradients(gray: torch.Tensor):
+    """Central-difference gradients (gx, gy), zero at the borders (the
+    odometry Jacobians)."""
+    g = gray.to(torch.float32)
+    gx = torch.zeros_like(g)
+    gy = torch.zeros_like(g)
+    gx[:, 1:-1] = (g[:, 2:] - g[:, :-2]) * 0.5
+    gy[1:-1, :] = (g[2:, :] - g[:-2, :]) * 0.5
+    return gx, gy
+
+
+def pyramid(gray: torch.Tensor, levels: int) -> list:
+    """Gaussian image pyramid (cv2.pyrDown chain) for coarse-to-fine odometry."""
+    out = [gray.to(torch.float32)]
+    for _ in range(levels - 1):
+        blurred = gaussian_blur(out[-1], ksize=5, sigma=1.0)
+        out.append(blurred[::2, ::2])
+    return out
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -118,3 +178,51 @@ def remap(img: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor,
           border_value: float = 0.0) -> torch.Tensor:
     """cv2.remap(INTER_LINEAR): out[i, j] = img(map_y[i, j], map_x[i, j])."""
     return bilinear_sample(img.to(torch.float32), map_x, map_y, border_value)
+
+
+def _sweep_axis(stack: torch.Tensor, coord: torch.Tensor, bound: int, axis: int):
+    """1-D linear resample of a (C, H, W) stack along `axis` (1 or 2) at the
+    float positions `coord` (H, W) by a displacement-bounded plane sweep.
+
+    Returns (values, valid): values[c, i, j] interpolates stack[c] along
+    `axis` at coord[i, j]; valid marks samples whose tap displacement lies
+    in [-bound, bound] and whose coord lies inside the image. The rolls
+    wrap, but a wrapped tap is out of the image and so masked by `valid`."""
+    n = stack.shape[axis]
+    shape = [1, 1]
+    shape[axis - 1] = n
+    idx = torch.arange(n, dtype=torch.int32, device=coord.device).reshape(shape)
+    c0 = torch.floor(coord)
+    frac = (coord - c0).to(stack.dtype)
+    disp = c0.to(torch.int32) - idx  # integer tap displacement
+    acc0 = torch.zeros_like(stack)
+    acc1 = torch.zeros_like(stack)
+    for s in range(-bound, bound + 2):
+        plane = torch.roll(stack, -s, dims=axis)
+        acc0 = torch.where((disp == s)[None], plane, acc0)
+        acc1 = torch.where((disp == s - 1)[None], plane, acc1)
+    vals = (1.0 - frac)[None] * acc0 + frac[None] * acc1
+    valid = (disp.abs() <= bound) & (coord >= 0) & (coord <= n - 1)
+    return vals, valid
+
+
+def sweep_bilinear_stack(imgs: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                         bound_y: int, bound_x: int, border_value: float = 0.0) -> torch.Tensor:
+    """Gather-free bilinear warp of a channel stack at bounded displacement:
+    out[c, i, j] ~= imgs[c, y[i, j], x[i, j]] (bilinear, constant border).
+
+    Two 1-D passes compose the 2-D warp (vertical, then horizontal), so the
+    composed sample is imgs[y(i, x(i, j)), x(i, j)]: exact where the
+    vertical map is constant along rows, first order elsewhere. Samples
+    displaced beyond the bound, or outside the image, return border_value.
+    imgs: (C, H, W); x, y: (H, W) float. The JAX package's TPU warp for
+    odometry; on the card `compute_rgbd_odometry` gathers instead."""
+    stack = imgs.to(torch.float32)
+    tv, vy = _sweep_axis(stack, y, bound_y, axis=1)
+    # carry the vertical validity through the horizontal resample so the
+    # composed sample's mask is read at the column it reads
+    tv = torch.cat([tv, vy[None].to(tv.dtype)], 0)
+    out, vx = _sweep_axis(tv, x, bound_x, axis=2)
+    valid = vx & (out[-1] > 0.999)
+    return torch.where(valid[None], out[:-1],
+                       torch.tensor(border_value, dtype=stack.dtype, device=stack.device))

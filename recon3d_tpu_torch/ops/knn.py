@@ -28,9 +28,12 @@ BIG = 1e30
 
 
 def _sq_norms(p: torch.Tensor) -> torch.Tensor:
-    """|p|^2 per row as fma(z, z, fma(y, y, x * x))."""
-    x, y, z = p[:, 0], p[:, 1], p[:, 2]
-    return fma(z, z, fma(y, y, x * x))
+    """|p|^2 per row as the chain fma(z, z, fma(y, y, x * x)), over every
+    column for rows wider than 3 (feature vectors)."""
+    acc = p[:, 0] * p[:, 0]
+    for j in range(1, p.shape[1]):
+        acc = fma(p[:, j], p[:, j], acc)
+    return acc
 
 
 def _masked_sq_norms(p: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
