@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive recon3d_tpu_torch's depth, point-cloud and fusion paths on one NVIDIA H100
-and hold every kernel on them to its plain PyTorch version.
+"""Drive recon3d_tpu_torch's depth, point-cloud, fusion, registration and
+streaming paths on one NVIDIA H100 and hold every kernel on them to its plain
+PyTorch version.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -75,8 +76,9 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               trials, point-to-plane refine) and information_matrix; the
               pose graph's LM. ms of a frame's preprocess, a pair and the
               pose graph, each pair's fitness / rmse, the pose error
-              against true_pose(k), and the same chain on the host CPU
-              (the same CPU-drawn RANSAC trials);
+              against true_pose(k), and the chain of the first 4 frames on
+              the card against the same on the host CPU (the same CPU-drawn
+              RANSAC trials);
   odometry    compute_rgbd_odometry on frames 0 -> 1 (3 levels, 10 sweeps
               each, gathers): median ms of 10, the busy share, the error
               against the truth (5 mm / 0.01) and against the host's run;
@@ -85,6 +87,26 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               backprojected frames 0 -> 1: N, M, the correspondence branch
               (the grid 1-NN where N * M > 2^26), ms, iterations, fitness,
               rmse and the host's run. TF32 must be off;
+  streaming   StreamingFusion at ScannerConfig()'s defaults (256^3, voxel
+              0.004, color, keyframe tracking, consume_batch "auto", queue
+              10, the live mesher, an auto-fit origin) on 30
+              SyntheticRGBDCamera(640, 480) frames (step 0.01): warmup, the
+              threaded stream (start(max_frames=30), stop(): fps, every
+              captured frame integrated, no odometry or host failure, K9
+              once a frame), the same frames through _fuse_one (ms a frame,
+              the last 5 under torch.profiler for the busy share, peak
+              memory after frame 5 and 30, extract_mesh_live after frame 1
+              and 30), each frame's drift from inv(true_pose(k)) (frames
+              1-3 within 1 cm), extract_mesh() against the scene, the live
+              mesh against extract_triangle_mesh (equal vertex-key and face
+              sets, vertices within 1e-6), then bitwise against the
+              _fuse_one run: the stream, K9's plain version, a checkpoint
+              at frame 15 resumed with the rest as one backlog through
+              _fuse_frames (its stages timed, profile=True); the host
+              syncs a step makes
+              (torch.cuda's sync debug mode, by line); the host CPU's first
+              5 frames (trajectory within 1e-4); DepthFilterBank()'s ms a
+              frame on the 30 depth frames;
   kernels     each kernel against its plain version on its path's own
               inputs (bitwise: K2 on the rectified and the warped pair, with
               and without the downward path; K6 on both axes; K8 both
@@ -102,7 +124,8 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               stages (the walk, the forward scan) apart and its call
               without the downward path, K6 each axis; K4 (v3 read only,
               checked) and K12 bitwise, each also timed without the LR
-              check (no right view).
+              check (no right view); K9's row also gives its launches on the
+              streaming path (`streaming_launches`).
 Each path runs once with every launch counter at 0 before it, and the
 counts it leaves must be the path's kernels exactly. The frames record fps
 (median of 10 frames after 2 warm-ups), peak memory (a single-device frame
@@ -158,7 +181,12 @@ SPIN_CYCLES_PER_MS = 1.98e6  # torch.cuda._sleep's cycles a millisecond at 1.98 
 # frames (pipeline/offline.py:533-613 at ScannerConfig()'s defaults), the
 # streaming path's odometry and the alignment shim on frames 0 -> 1
 REGISTRATION = dict(width=640, height=480, frames=8, capacity=8192, odometry_runs=10,
-                    icp_runs=3)
+                    icp_runs=3, cpu_frames=4)
+# the streaming phase: StreamingFusion at ScannerConfig()'s defaults on the
+# fusion phase's scene (30 capture frames, step 0.01); the last frames of the
+# _fuse_one loop run under torch.profiler, the first ones on the host CPU
+STREAMING = dict(width=640, height=480, frames=30, step=0.01, queue_size=10, profile_frames=5,
+                 cpu_frames=5, stream_timeout_s=300, peak_slack_bytes=1 << 20)
 
 
 def emit(obj):
@@ -370,16 +398,20 @@ def bound_ms(nbytes, nops, ops_per_s=F32_OPS_PER_S):
 
 
 
-def device_profile(fn, top=6, calls=1):
+def device_profile(fn, top=6, calls=1, host_ops=True):
     """One call of fn, which makes `calls` calls of a path, under
     torch.profiler: its wall ms (host clock, to a synchronize), the kernels'
     summed device ms, the device's busy share and the `top` kernels by
     device time, the times per call of the path; (None, {}) when the trace
     holds no device time. Also returns the device microseconds by kernel
-    name (over all calls)."""
+    name (over all calls). host_ops=False traces the device activity only
+    (the host's operator events of a launch-heavy path take the profiler
+    tens of seconds to process)."""
     import torch
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host_ops:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -498,7 +530,6 @@ def registration_chain(frames, intr, dev, times=None):
     from recon3d_tpu_torch.pointcloud.voxel import voxel_downsample
     from recon3d_tpu_torch.registration.features import compute_fpfh
     from recon3d_tpu_torch.registration.icp import information_matrix
-    from recon3d_tpu_torch.registration.posegraph import PoseGraph, global_optimization
     from recon3d_tpu_torch.registration.ransac import registration_ransac_fpfh
     from recon3d_tpu_torch.utils.types import compact
 
@@ -523,12 +554,9 @@ def registration_chain(frames, intr, dev, times=None):
         clouds.append(pc)
         times.setdefault("preprocess", []).append((clock() - t0) * 1e3)
     n = len(clouds)
-    seq = [(i, i - 1) for i in range(1, n)]
-    stride = max(n // 4, 2)
-    pairs = seq + [(i, i - stride) for i in range(stride, n, stride)]
     thr = 1.5 * c.voxel_size
     results = []
-    for i, j in pairs:
+    for i, j in chain_pairs(n):
         t0 = clock()
         res = registration_ransac_fpfh(clouds[i], clouds[j], feats[i], feats[j],
                                        distance_threshold=thr,
@@ -540,24 +568,43 @@ def registration_chain(frames, intr, dev, times=None):
                         "good": bool(res.is_good(c.fitness_min, c.rmse_max * 5)),
                         "points": int(clouds[i].valid.sum())})
         times.setdefault("pair", []).append((clock() - t0) * 1e3)
+    t0 = clock()
+    graph, optimized = chain_graph(results, n, dev)
+    times.setdefault("pose_graph", []).append((clock() - t0) * 1e3)
+    return {"pairs": results, "graph": optimized, "graph_in": graph, "clouds": clouds,
+            "feats": feats}
+
+
+def chain_pairs(n):
+    """The chain's pairs on n frames: the sequential ones, then the loop
+    pairs at stride max(n // 4, 2)."""
+    stride = max(n // 4, 2)
+    return [(i, i - 1) for i in range(1, n)] + [(i, i - stride) for i in range(stride, n, stride)]
+
+
+def chain_graph(results, n, dev):
+    """The chain's pose graph on n frames from its pairs' dicts, in
+    chain_pairs(n)'s order (identity + uncertain edge for a weak sequential
+    pair, good loop pairs as uncertain edges), and that graph after
+    global_optimization on `dev`."""
+    import numpy as np
+
+    from recon3d_tpu_torch.registration.posegraph import PoseGraph, global_optimization
+
     graph = PoseGraph()
     graph.add_node(np.eye(4))
     world_from_prev = np.eye(4)
-    for r in results[:len(seq)]:
+    for r in results[:n - 1]:
         i, j = r["pair"]
         T, info, uncertain = ((r["T"], r["info"], False) if r["good"]
                               else (np.eye(4), np.eye(6) * 1e-3, True))
         world_from_prev = world_from_prev @ T
         graph.add_node(world_from_prev)
         graph.add_edge(i, j, T, info, uncertain=uncertain)
-    for r in results[len(seq):]:
+    for r in results[n - 1:]:
         if r["good"]:
             graph.add_edge(*r["pair"], r["T"], r["info"], uncertain=True)
-    t0 = clock()
-    optimized = global_optimization(graph, device=dev)
-    times.setdefault("pose_graph", []).append((clock() - t0) * 1e3)
-    return {"pairs": results, "graph": optimized, "graph_in": graph, "clouds": clouds,
-            "feats": feats}
+    return graph, global_optimization(graph, device=dev)
 
 
 def scene_motion(Ta, Tb, cam_from_world):
@@ -604,9 +651,21 @@ def registration_phases(dev, counted, timed_frames, all_launches):
     chain, launches = counted(lambda: registration_chain(reg_frames, reg_intr, dev, reg_times), {})
     all_launches["registration"] = launches
     reg_pairs, reg_graph = chain["pairs"], chain["graph"]
+    # the card against the host on the first cpu_frames frames (the host's
+    # run of all 8 took 76-95 s of the script): the host runs the chain on
+    # them; its pairs are pairs of the card's 8-frame run (the same clouds,
+    # the same seeded trials), so only their pose graph is solved again on
+    # the card
+    n_cpu = rg["cpu_frames"]
     t0 = time.perf_counter()
-    host = registration_chain(reg_frames, reg_intr, "cpu")
+    host = registration_chain(reg_frames[:n_cpu], reg_intr, "cpu")
     cpu_chain_s = time.perf_counter() - t0
+    by_pair = {r["pair"]: r for r in reg_pairs}
+    check(all(p in by_pair for p in chain_pairs(n_cpu)),
+          "registration: the host's pairs are not pairs of the card's run")
+    card_pairs = [by_pair[p] for p in chain_pairs(n_cpu)]
+    card_graph = chain_graph(card_pairs, n_cpu, dev)[1]
+    card_nodes = card_graph.nodes
     cpu_pairs, cpu_graph = host["pairs"], host["graph"]
     nodes = np.stack(reg_graph.nodes)
     check(len(nodes) == rg["frames"] and np.isfinite(nodes).all(),
@@ -616,11 +675,12 @@ def registration_phases(dev, counted, timed_frames, all_launches):
     # (center m, normal, angle) a pair against the host's (in the target's
     # frame) and a node against the host's and the truth (in frame 0's)
     vs_cpu_pair = [scene_motion(a["T"], b["T"], rcam.true_pose(a["pair"][1]))
-                   for a, b in zip(reg_pairs, cpu_pairs)]
-    vs_cpu_node = [scene_motion(a, b, pose0) for a, b in zip(nodes, cpu_graph.nodes)]
+                   for a, b in zip(card_pairs, cpu_pairs)]
+    vs_cpu_node = [scene_motion(a, b, pose0) for a, b in zip(card_nodes, cpu_graph.nodes)]
     vs_truth = [scene_motion(a, b, pose0) for a, b in zip(nodes, truth)]
     worst = lambda rows, i: max(r[i] for r in rows)  # noqa: E731
-    good_cpu_only = [a["pair"] for a, b in zip(reg_pairs, cpu_pairs) if b["good"] and not a["good"]]
+    good_cpu_only = [a["pair"] for a, b in zip(card_pairs, cpu_pairs)
+                     if b["good"] and not a["good"]]
     # bars: every pair the host calls good is good on the card; against the
     # host's run (the same CPU-drawn trials) and the truth, the sphere's
     # center within 1 mm / 5 mm and the plane's normal within 1e-3 / 5e-3.
@@ -668,11 +728,11 @@ def registration_phases(dev, counted, timed_frames, all_launches):
     torch.cuda.synchronize()
     pose_graph_ms = (time.perf_counter() - t0) * 1e3
     prof_pair, _ = device_profile(lambda: rransac.registration_ransac_fpfh(
-        src, tgt, fs, ft, distance_threshold=thr))
+        src, tgt, fs, ft, distance_threshold=thr), host_ops=False)
     # five LM sweeps under the profiler (its post-processing of jacfwd's
     # host events grows with the sweeps; the default 50 took ~70 s)
     prof_graph, _ = device_profile(lambda: global_optimization(chain["graph_in"], max_iterations=5,
-                                                               device=dev))
+                                                               device=dev), host_ops=False)
     emit({"phase": "registration", "frames": rg["frames"], "frame": [rg["height"], rg["width"]],
           "capacity": rg["capacity"], "pairs": [r["pair"] for r in reg_pairs],
           "launches": all_launches["registration"],
@@ -686,13 +746,15 @@ def registration_phases(dev, counted, timed_frames, all_launches):
           "rmse": [round(r["rmse"], 7) for r in reg_pairs],
           "icp_iterations": [r["iterations"] for r in reg_pairs],
           "good": [r["good"] for r in reg_pairs], "points": [r["points"] for r in reg_pairs],
-          "edges": len(reg_graph.edges), "cpu_edges": len(cpu_graph.edges),
+          "edges": len(reg_graph.edges), "card_edges_cpu_frames": len(card_graph.edges),
+          "cpu_edges": len(cpu_graph.edges),
           "pose_err_max": float(max(np.abs(a - b).max() for a, b in zip(nodes, truth))),
           "translation_err_max_m": float(max(np.linalg.norm(a[:3, 3] - b[:3, 3])
                                              for a, b in zip(nodes, truth))),
           "vs_truth_center_normal_angle": vs_truth,
+          "cpu_frames": n_cpu, "cpu_pairs": [r["pair"] for r in cpu_pairs],
           "vs_cpu_pair_T_max": float(max(np.abs(a["T"] - b["T"]).max()
-                                         for a, b in zip(reg_pairs, cpu_pairs))),
+                                         for a, b in zip(card_pairs, cpu_pairs))),
           "vs_cpu_pair_center_normal_angle": vs_cpu_pair,
           "vs_cpu_node_center_normal_angle": vs_cpu_node,
           "cpu_good": [r["good"] for r in cpu_pairs],
@@ -715,7 +777,7 @@ def registration_phases(dev, counted, timed_frames, all_launches):
     res_o, launches = counted(odo, {})
     all_launches["odometry"] = launches
     odo_ms, odo_peak, _ = timed_frames(odo, rg["odometry_runs"], 2)
-    prof_odo, _ = device_profile(odo)
+    prof_odo, _ = device_profile(odo, host_ops=False)
     res_oc = compute_rgbd_odometry(*(convert.rgbd_image(c, d, device="cpu")
                                      for c, d in ((c0, d0), (c1, d1))), o_intr)
     T_o = res_o.transformation.cpu().double().numpy()
@@ -795,7 +857,7 @@ def registration_phases(dev, counted, timed_frames, all_launches):
         res_i, launches = counted(fn, expected)
         all_launches[f"icp_{name}"] = launches
         ms_i, _, _ = timed_frames(fn, rg["icp_runs"], 1)
-        prof_i, _ = device_profile(fn)
+        prof_i, _ = device_profile(fn, host_ops=False)
         res_h = host_fn()
         N, M = ins[0].capacity, ins[1].capacity
         T_diff = float((res_i.transformation.cpu() - res_h.transformation).abs().max())
@@ -818,6 +880,339 @@ def registration_phases(dev, counted, timed_frames, all_launches):
           "phase_s": round(time.perf_counter() - t_phase, 3)})
     for ok, what in bars:
         check(ok, what)
+
+
+def sync_sites(fn):
+    """fn() under torch.cuda's sync debug mode: its result and the host
+    syncs it made, counted by the line of the port that made them."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return out, sites
+
+
+def streaming_phase(dev, counted, all_launches):
+    """The streaming phase: StreamingFusion at ScannerConfig()'s defaults
+    (256^3, keyframe tracking, auto-batching, queue 10, live mesher, an
+    auto-fit origin) on 30 SyntheticRGBDCamera(640, 480) frames: the
+    threaded stream, the same frames through _fuse_one, K9's plain version,
+    a checkpoint / resume with the rest as one backlog, the host CPU's first frames
+    and a DepthFilterBank() chain. `counted` runs a path with the launch
+    counters at 0 and holds its counts. The bars are checked after the
+    phase's line, so a failed one still shows its numbers."""
+    import numpy as np
+    import torch
+
+    from recon3d_tpu_torch.camera.fake import SyntheticRGBDCamera
+    from recon3d_tpu_torch.config import ScannerConfig
+    from recon3d_tpu_torch.depth.filters import DepthFilterBank
+    from recon3d_tpu_torch.fusion import tsdf
+    from recon3d_tpu_torch.ops import project_sample
+    from recon3d_tpu_torch.pipeline.streaming import StreamingFusion
+    from recon3d_tpu_torch.utils.types import CameraIntrinsics
+
+    t_phase = time.perf_counter()
+    cs = STREAMING
+    N = cs["frames"]
+    out_dir = tempfile.TemporaryDirectory()
+    cfg = dataclasses.replace(ScannerConfig(), output_dir=out_dir.name)  # the log's directory
+    fc = cfg.fusion
+    out, bars, parts_s = {}, [], {}
+    stamp = [time.perf_counter()]
+
+    def part(name):
+        """Seconds since the last part ended."""
+        now = time.perf_counter()
+        parts_s[name] = round(now - stamp[0], 3)
+        stamp[0] = now
+
+    def camera():
+        return SyntheticRGBDCamera(cs["width"], cs["height"], n_frames=N, step=cs["step"])
+
+    cam = camera()
+    cam.open()
+    frames = [cam.grab() for _ in range(N)]
+    intr = CameraIntrinsics(cam.fx, cam.fy, cam.cx, cam.cy)
+
+    def scanner(device=dev, **kw):
+        return StreamingFusion(camera(), intr, cfg, resolution=fc.grid_resolution,
+                               queue_size=cs["queue_size"], tracking="keyframe",
+                               consume_batch="auto", live_mesher=True, device=device, **kw)
+
+    def same(a, b, what):
+        """A bar: trajectory and volume bitwise."""
+        ok = len(a.trajectory) == len(b.trajectory) == N and all(
+            torch.equal(p, q) for p, q in zip(a.trajectory, b.trajectory)) and all(
+            torch.equal(getattr(a.volume, k), getattr(b.volume, k))
+            for k in ("tsdf", "weight", "color", "origin"))
+        bars.append((ok, f"streaming: {what}: the trajectory or the volume differs"))
+        return ok
+
+    # ---- (a) the threaded stream: warmup, start(max_frames=N), stop()
+    sf = scanner()
+    sf.warmup(*frames[0])
+    part("warmup")
+    check(sf._state is None and sf.frames_integrated == 0 and not sf.trajectory
+          and not bool(sf.volume.weight.any()), "streaming: warmup touched the scan's state")
+
+    def stream():
+        # join, not poll: a polling main thread takes the interpreter lock
+        # from the fusion thread, whose launches are host-bound
+        t0 = time.perf_counter()
+        sf.start(max_frames=N)
+        for t in sf._threads:
+            t.join(timeout=max(1.0, t0 + cs["stream_timeout_s"] - time.perf_counter()))
+        sf.stop()
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    stream_s, launches = counted(stream, {"K9": N})
+    part("stream")
+    all_launches["streaming"] = launches
+    out["stream"] = {"frames_captured": sf.frames_captured,
+                     "frames_integrated": sf.frames_integrated,
+                     "odometry_failures": sf.odometry_failures,
+                     "host_failures": sf._host_failures, "wall_s": round(stream_s, 4),
+                     "fps": round(sf.frames_integrated / stream_s, 4),
+                     "drain_cap": sf._consume_batch}
+    check(sf.frames_captured == sf.frames_integrated == N and sf._host_failures == 0
+          and sf.odometry_failures == 0, f"streaming: the stream lost frames: {out['stream']}")
+
+    # ---- (b) the same frames through _fuse_one, one at a time
+    dev_frames = [(torch.tensor(c, device=dev), torch.tensor(d, device=dev)) for c, d in frames]
+    seq = scanner()
+    frame_ms, live, peak = [], {}, {}
+
+    def live_mesh(after):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        m = seq.extract_mesh_live()
+        torch.cuda.synchronize(dev)
+        live[after] = {"ms": round((time.perf_counter() - t0) * 1e3, 3),
+                       "vertices": int(m.vertex_valid.sum()),
+                       "triangles": int(m.triangle_valid.sum())}
+
+    def sequential():
+        for k, (c, d) in enumerate(dev_frames[:N - cs["profile_frames"]]):
+            t0 = time.perf_counter()
+            seq._fuse_one(c, d, fc)
+            torch.cuda.synchronize(dev)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            if k == 0:
+                live_mesh("frame_1")
+                torch.cuda.reset_peak_memory_stats(dev)
+            if k == 4:
+                peak["frame_5"] = torch.cuda.max_memory_allocated(dev)
+        # the last frames under torch.profiler: the device's busy share
+        t0 = time.perf_counter()
+        prof, dev_us = device_profile(lambda: [seq._fuse_one(c, d, fc)
+                                               for c, d in dev_frames[N - cs["profile_frames"]:]],
+                                      top=8, calls=cs["profile_frames"], host_ops=False)
+        parts_s["profile"] = round(time.perf_counter() - t0, 3)
+        peak["frame_n"] = torch.cuda.max_memory_allocated(dev)
+        return prof, dev_us
+
+    (prof, dev_us), launches = counted(sequential, {"K9": N})
+    part("sequential")
+    if prof is not None:
+        prof["k9_ms"] = round(sum(t for k, t in dev_us.items() if "project_sample" in k)
+                              / 1e3 / cs["profile_frames"], 4)
+    out.update(fuse_one_launches=launches,
+               fuse_one_ms_median=round(statistics.median(frame_ms[1:]), 3),
+               fuse_one_ms=[round(t, 3) for t in frame_ms], profiled=prof)
+    same(sf, seq, "the threaded stream against _fuse_one")
+    live_mesh(f"frame_{N}")
+    out["live_mesh"], out["peak_mem_bytes"] = live, peak
+    part("live_mesh")
+    # peak memory: the volume is written in place, so it stops growing
+    bars.append((peak["frame_n"] - peak["frame_5"] <= cs["peak_slack_bytes"],
+                 f"streaming: peak memory grew from frame 5 to {N}: {peak}"))
+
+    # against the truth: world_from_cam(k) ~ inv(true_pose(k))
+    drift = [float(np.linalg.norm(seq.trajectory[k].cpu().double().numpy()[:3, 3]
+                                  - np.linalg.inv(cam.true_pose(k))[:3, 3])) for k in range(N)]
+    out.update(drift_m=[round(x, 6) for x in drift], drift_max_m=max(drift))
+    bars.append((max(drift[1:4]) < 0.01, f"streaming: frames 1-3 drift {drift[1:4]} m"))
+    # the mesh against the scene: the auto-fit origin centers the volume on
+    # the frame's median point (0, 0, 1.8), so it holds the plane z = 1.8 and
+    # the sphere's shadow on it (the sphere's visible face, z < 1.2, lies in
+    # front of the volume); bar: each vertex's distance to the nearer surface
+    # under a voxel (median)
+    mesh = seq.extract_mesh()
+    verts = mesh.vertices[mesh.vertex_valid]
+    d_sph = ((verts - torch.tensor([0.0, 0.0, 1.2], device=dev)).norm(dim=1) - 0.3).abs()
+    d_near = torch.minimum(d_sph, (verts[:, 2] - 1.8).abs())
+    out["vs_truth"] = vs_truth = {
+        "vertices": int(verts.shape[0]), "median_m": float(d_near.median()),
+        "max_m": float(d_near.max()), "sphere_points": int((d_sph < 0.05).sum()),
+        "plane_points": int(((verts[:, 2] - 1.8).abs() < 0.05).sum())}
+    bars.append((vs_truth["vertices"] > 1000 and vs_truth["median_m"] < fc.voxel_size,
+                 f"streaming: the mesh is far from the scene: {vs_truth}"))
+    part("extract_mesh")
+
+    # the live mesh against the full extract: equal vertex and face sets,
+    # vertices within 1e-6, the same triangles cut by the per-slab caps
+    out["live_vs_full"] = lvf = live_against_full(seq.mesher, seq.volume,
+                                                  seq.extract_mesh_live())
+    bars.append((lvf["vertex_keys_equal"] and lvf["faces_equal"]
+                 and lvf["vertex_max_abs"] <= 1e-6
+                 and lvf["mesher_dropped"] == lvf["full_dropped"],
+                 f"streaming: the live mesh differs from the full extract: {lvf}"))
+    part("live_vs_full")
+
+    # ---- (c) K9 replaced by its plain version: bitwise
+    sampler = tsdf.sample_images_at
+    tsdf.sample_images_at = project_sample.sample_images_plain
+    try:
+        plain = scanner()
+        counted(lambda: [plain._fuse_one(c, d, fc) for c, d in dev_frames], {})
+    finally:
+        tsdf.sample_images_at = sampler
+    same(plain, seq, "K9's plain version")
+    del plain
+    part("plain_k9")
+
+    # ---- (d) checkpoint at N/2, restore, the rest as one backlog through
+    # _fuse_frames (with profile=True: the step's stages, each ending in a
+    # sync): bitwise against _fuse_one a frame; the host syncs of a step
+    # counted on the first half
+    half = N // 2
+    ck = scanner()
+    ck._fuse_one(*dev_frames[0], fc)
+    torch.cuda.synchronize(dev)
+    _, sites = sync_sites(lambda: [ck._fuse_one(c, d, fc) for c, d in dev_frames[1:half]])
+    out.update(syncs_per_frame=sum(sites.values()) / (half - 1),
+               sync_sites=dict(sorted(sites.items(), key=lambda kv: -kv[1])))
+    ck_path = os.path.join(out_dir.name, "scan_ckpt.npz")
+    t0 = time.perf_counter()
+    ck.save_checkpoint(ck_path)
+    t1 = time.perf_counter()
+    resumed = scanner(profile=True).restore_checkpoint(ck_path)
+    out["checkpoint"] = {"bytes": os.path.getsize(ck_path), "save_s": round(t1 - t0, 3),
+                         "load_s": round(time.perf_counter() - t1, 3)}
+    bars.append((resumed.frames_integrated == half,
+                 "streaming: the checkpoint lost its frame count"))
+    resumed._fuse_frames(dev_frames[half:], fc)
+    same(resumed, seq, "checkpoint / resume, the rest through _fuse_frames")
+    t = resumed.timer
+    out.update(stages_ms_per_call={k: round(t.totals[k] * 1e3 / t.counts[k], 3) for k in t.totals},
+               stage_calls=dict(t.counts))
+    del ck, resumed
+    part("checkpoint")
+
+    # ---- (f) the port on the host CPU: the first frames
+    nc = cs["cpu_frames"]
+    host = scanner(device="cpu")
+    for c, d in frames[:nc]:
+        host._fuse_one(c, d, fc)
+    vs_cpu = max(float((p.cpu() - q).abs().max())
+                 for p, q in zip(seq.trajectory[:nc], host.trajectory))
+    out.update(cpu_frames=nc, vs_cpu_trajectory_max=vs_cpu)
+    bars.append((len(host.trajectory) == nc and vs_cpu <= 1e-4,
+                 f"streaming: card against host trajectory {vs_cpu}"))
+    del host
+    part("cpu")
+
+    # ---- (g) DepthFilterBank() at its defaults on the N depth frames
+    bank = DepthFilterBank()
+    filt_ms = []
+    for _, d in dev_frames:
+        t0 = time.perf_counter()
+        filtered = bank(d)
+        torch.cuda.synchronize(dev)
+        filt_ms.append((time.perf_counter() - t0) * 1e3)
+    bars.append((bool(torch.isfinite(filtered).all()) and filtered.shape == d.shape,
+                 "streaming: the filter chain's output"))
+    out.update(filters_ms_median=round(statistics.median(filt_ms[1:]), 3),
+               filters_ms=[round(t, 3) for t in filt_ms])
+    part("filters")
+
+    emit({"phase": "streaming", "frame": [cs["height"], cs["width"]], "frames": N,
+          "resolution": fc.grid_resolution, "voxel_size": fc.voxel_size,
+          "origin": seq.volume.origin.tolist(), "launches": all_launches["streaming"], **out,
+          "bars_failed": [what for ok, what in bars if not ok], "parts_s": parts_s,
+          "phase_s": round(time.perf_counter() - t_phase, 3)})
+    out_dir.cleanup()
+    for ok, what in bars:
+        check(ok, what)
+
+
+def keyed_mesh(vertex_keys, vertices, faces, valid=None):
+    """A mesh as sets keyed by its vertices' weld keys (the integer keys the
+    weld groups corners by, so two meshes welded from the same corners name
+    each vertex alike however their means round): (vertex code -> position,
+    the faces as rows of codes, each rotated to start at its least code
+    (winding kept), sorted). Inputs are host arrays; `valid` picks the
+    vertices that exist."""
+    import numpy as np
+
+    k = vertex_keys.astype(np.int64) + (1 << 20)
+    code = (k[:, 0] << 42) | (k[:, 1] << 21) | k[:, 2]
+    fc = code[faces]
+    first = np.argmin(fc, axis=1)
+    fc = np.take_along_axis(fc, (first[:, None] + np.arange(3)) % 3, axis=1)
+    keep = np.ones(len(code), bool) if valid is None else valid
+    return dict(zip(code[keep].tolist(), vertices[keep])), fc[np.lexsort(fc.T[::-1])]
+
+
+def live_against_full(mesher, vol, live):
+    """extract_mesh_live's mesh (`live`, the table's slots as vertices)
+    against extract_triangle_mesh(vol), through the weld keys: the full
+    extract's steps are replayed here to get each welded vertex's key and
+    its output is required to equal that replay bitwise. Returns the
+    numbers: equal vertex-key and face sets, and the largest vertex
+    difference over equal keys."""
+    import numpy as np
+    import torch
+
+    from recon3d_tpu_torch.fusion import marching
+
+    budget = marching.default_max_triangles(vol.resolution)
+    soup, valid, _, dropped = marching.extract_triangle_soup(vol, max_triangles=budget,
+                                                             with_dropped=True, cap_mult=1)
+    if int(dropped) > 0:
+        soup, valid, _, dropped = marching.extract_triangle_soup(
+            vol, max_triangles=budget, with_dropped=True, cap_mult=4)
+    soup = marching._orient_by_gradient(vol, soup)
+    verts, vvalid = soup.reshape(-1, 3), valid.repeat_interleave(3)
+    quant = torch.tensor(float(vol.voxel_size) / 256.0, dtype=torch.float32, device=soup.device)
+    vsum, vcnt, inv, n_u = marching._weld_device_hash(verts, vvalid, quant, ref=vol.origin)
+    n_u = int(n_u)
+    full_v = (vsum[:n_u].double() / vcnt[:n_u].double()[:, None]).to(torch.float32)
+    faces = inv.reshape(-1, 3)[valid]
+    faces = faces[(faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
+                  & (faces[:, 0] != faces[:, 2])]
+    full = marching.extract_triangle_mesh(vol)
+    check(torch.equal(full.vertices, full_v) and torch.equal(full.triangles, faces),
+          "streaming: the replayed full extract differs from extract_triangle_mesh")
+    q = marching._quantize(verts, vvalid, quant, vol.origin)
+    full_keys = torch.zeros((n_u, 3), dtype=torch.int32, device=q.device)
+    full_keys[inv[vvalid].long()] = q[vvalid]
+    fv, ff = keyed_mesh(full_keys.cpu().numpy(), full_v.cpu().numpy(),
+                        faces.long().cpu().numpy())
+    lv, lf = keyed_mesh(mesher.cache.key.cpu().numpy(), live.vertices.cpu().numpy(),
+                        live.triangles[live.triangle_valid].long().cpu().numpy(),
+                        live.vertex_valid.cpu().numpy())
+    out = {"vertices": [len(lv), len(fv)], "faces": [len(lf), len(ff)],
+           "vertex_keys_equal": lv.keys() == fv.keys(),
+           "faces_equal": bool(lf.shape == ff.shape and np.array_equal(lf, ff)),
+           "full_dropped": int(dropped), "mesher_dropped": mesher.dropped_triangles}
+    if out["vertex_keys_equal"]:
+        out["vertex_max_abs"] = float(max(np.abs(lv[k] - fv[k]).max() for k in fv))
+    return out
 
 
 def plain_disparity(gl, gr, m, w, num_directions):
@@ -1600,6 +1995,7 @@ def main():
     del mesh_q, verts_m, vol_q
 
     registration_phases(dev, counted, timed_frames, all_launches)
+    streaming_phase(dev, counted, all_launches)
 
     # ---- kernels against their plain versions, on their paths' inputs
     rows = []
@@ -1983,7 +2379,8 @@ def main():
         cuda_ms(lambda: project_sample.sample_images_plain(vc, uc, imgs), PLAIN_RUNS),
         bound_ms(nbytes, 0), run_ms(lambda: imgs[:, vcl, ucl], KERNEL_RUNS),
         library="advanced-index gather imgs[:, vc, uc] (the plain version itself)",
-        shape=[*imgs.shape, fcfg.grid_resolution])
+        shape=[*imgs.shape, fcfg.grid_resolution],
+        streaming_launches=all_launches["streaming"]["K9"])
     del vc, uc, vcl, ucl, imgs, s_k, s_q, vol_k
 
     emit({"kernels": rows})

@@ -1,5 +1,5 @@
-"""Matcher, WLS, point-cloud processing, registration, fusion and meshing
-configuration (twin of recon3d_tpu/config.py:19-115, 128-178).
+"""Matcher, WLS, stream, point-cloud processing, registration, fusion,
+meshing and scanner configuration (twin of recon3d_tpu/config.py:19-201).
 
 Frozen dataclasses with the reference's defaults. The only difference from
 the JAX package is the `backend` vocabulary: 'cuda' is the hand-written
@@ -95,6 +95,18 @@ class WLSConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Capture stream settings (reference: realsense_pipeline.py:20-23, mini1.py:78-80)."""
+
+    width: int = 640
+    height: int = 480
+    fps: int = 30
+    depth_scale: float = 1000.0  # uint16 units per meter
+    depth_trunc: float = 3.0  # meters (mini1.py create_from_color_and_depth default)
+    align_depth_to_color: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class ProcessingConfig:
     """Point-cloud processing (reference: pointcloud_processing.py:27-40, main flow)."""
 
@@ -146,3 +158,23 @@ class MeshConfig:
     poisson_depth: int = 6
     smoothing_iterations: int = 5
     density_quantile: float = 0.01  # low-density vertex cull / highlight (visualizer.py:41-57)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScannerConfig:
+    """Top-level pipeline config, superset of mini1.py:535-556 argparse flags."""
+
+    stream: StreamConfig = dataclasses.field(default_factory=StreamConfig)
+    matcher: StereoMatcherConfig = dataclasses.field(default_factory=StereoMatcherConfig)
+    wls: WLSConfig = dataclasses.field(default_factory=WLSConfig)
+    processing: ProcessingConfig = dataclasses.field(default_factory=ProcessingConfig)
+    registration: RegistrationConfig = dataclasses.field(default_factory=RegistrationConfig)
+    fusion: FusionConfig = dataclasses.field(default_factory=FusionConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    output_dir: str = "output"
+    visualize: bool = False
+    max_fragments: int = 64  # fragment ring buffer cap (check83.py:318-330)
+    save_frames: bool = True  # per-frame checkpointing (mini1.py:154-158)
+    # stop the scan thread after this long without a single valid frame from
+    # a live source (replay sources cut on a short empty-read streak instead)
+    empty_timeout_s: float = 5.0

@@ -1,11 +1,15 @@
-"""Logger and FPS counter (twin of recon3d_tpu/utils/logging.py:
-`make_logger`, `FPSCounter`)."""
+"""Logger, FPS counter, stage timers and an optional trace (twin of
+recon3d_tpu/utils/logging.py: `make_logger`, `FPSCounter`, `StageTimer`;
+`torch_trace` stands for `jax_trace`)."""
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
 from typing import Optional
+
+from recon3d_tpu_torch.utils import profiling as _profiling
 
 
 def make_logger(name: str = "recon3d", output_dir: Optional[str] = None) -> logging.Logger:
@@ -56,3 +60,21 @@ class FPSCounter:
                 self.logger.info("%s fps: %.2f", self.label, self.last_fps)
             return self.last_fps
         return None
+
+
+# the JAX package's logging.StageTimer; profiling.StageTimer is the same
+# timer with sync() and reset()
+StageTimer = _profiling.StageTimer
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: Optional[str]):
+    """Optional torch.profiler trace around a block, written to `log_dir`
+    (view with TensorBoard's PyTorch profiler plugin or ui.perfetto.dev).
+    Stands for the JAX package's `jax_trace` (recon3d_tpu/utils/logging.py),
+    which wraps jax.profiler; no `log_dir`, no trace."""
+    if not log_dir:
+        yield
+        return
+    with _profiling.trace(log_dir):
+        yield
