@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive recon3d_tpu_torch's depth, point-cloud, fusion, registration and
-streaming paths on one NVIDIA H100 and hold every kernel on them to its plain
-PyTorch version.
+"""Drive recon3d_tpu_torch's depth, point-cloud, fusion, registration,
+streaming and calibration paths on one NVIDIA H100 and hold every kernel on
+them to its plain PyTorch version.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -105,8 +105,25 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               _fuse_frames (its stages timed, profile=True); the host
               syncs a step makes
               (torch.cuda's sync debug mode, by line); the host CPU's first
-              5 frames (trajectory within 1e-4); DepthFilterBank()'s ms a
+              3 frames (trajectory within 1e-4); DepthFilterBank()'s ms a
               frame on the 30 depth frames;
+  calibration calibrate -> rectify -> depth: 15 stereo pairs of a 9x6 board
+              (square 0.04 m) rendered at 1920x1080 through pipeline_rig()'s
+              cameras (anti-aliased, a lens blur, 8 bits); initial corners
+              the true projections + a seeded U(-0.75, 0.75) px (the
+              stand-in for OpenCV's detection, which neither package has
+              here), refined by corner_subpix on the card (2 pairs also on
+              the host); calib.api.stereo_calibrate_camera with that
+              detection (calibrate_camera x 2, stereo_calibrate,
+              stereo_rectify, the NPZ, the report) on the card and on the
+              host in float64: stage seconds, LM iterations, rms, the host
+              syncs by line, the busy share of one calibrate_camera, card
+              against host and against the true rig; a raw-schema NPZ of
+              the result through DepthPipeline.from_npz, one counted frame
+              of the bench's raw pair against its plain version, fps, the
+              maps against the true rig's; census_cost_volume on the
+              rectified pair and census SGM on its rows 270-810, card
+              against host, and its RMSE against the analytic disparity;
   kernels     each kernel against its plain version on its path's own
               inputs (bitwise: K2 on the rectified and the warped pair, with
               and without the downward path; K6 on both axes; K8 both
@@ -185,8 +202,21 @@ REGISTRATION = dict(width=640, height=480, frames=8, capacity=8192, odometry_run
 # the streaming phase: StreamingFusion at ScannerConfig()'s defaults on the
 # fusion phase's scene (30 capture frames, step 0.01); the last frames of the
 # _fuse_one loop run under torch.profiler, the first ones on the host CPU
+# (its host CPU frames cut from 5 to 3 when the calibration phase came in)
 STREAMING = dict(width=640, height=480, frames=30, step=0.01, queue_size=10, profile_frames=5,
-                 cpu_frames=5, stream_timeout_s=300, peak_slack_bytes=1 << 20)
+                 cpu_frames=3, stream_timeout_s=300, peak_slack_bytes=1 << 20)
+# the calibration phase: 15 stereo pairs of the reference's 9x6 board
+# (calib/api.py's pattern_size), square 0.04 m, rendered at the depth path's
+# size through pipeline_rig()'s cameras; the initial corners are the true
+# projections plus a seeded uniform offset (the stand-in for OpenCV's
+# detection, which neither package has without cv2)
+CALIBRATION = dict(pairs=15, pattern=(9, 6), square=0.04, z=(0.6, 1.2), tilt=0.45, roll=0.12,
+                   margin_px=40, jitter_px=0.75, supersample=4, lens_blur=(7, 1.0),
+                   host_refine_pairs=2, seed=11, census_rows=(270, 810),
+                   # the rectification maps from the calibrated rig against the
+                   # true rig's: 1.5 x the JAX package's median on these renders
+                   # and corners (1.6943 px, measured on the host CPU)
+                   maps_median_px=1.5 * 1.6943)
 
 
 def emit(obj):
@@ -1215,6 +1245,389 @@ def live_against_full(mesher, vol, live):
     return out
 
 
+def board_poses(rig, n, seed):
+    """n board poses (rvec, tvec: board -> left camera) at z 0.6-1.2 m,
+    tilted up to CALIBRATION["tilt"] rad about x and y and rolled up to
+    CALIBRATION["roll"], each with the whole board (its outer squares and a
+    margin) inside both cameras' images."""
+    import numpy as np
+
+    from recon3d_tpu_torch.calib import model as cm
+
+    c = CALIBRATION
+    nx, ny = c["pattern"]
+    sq = c["square"]
+    rng = np.random.RandomState(seed)
+    outline = np.array([[x, y, 0.0] for x in (-sq, nx * sq) for y in (-sq, ny * sq)])
+    center_b = np.array([(nx - 1) * sq / 2, (ny - 1) * sq / 2, 0.0])
+    Kinv = np.linalg.inv(rig.mtx1)
+    poses = []
+    while len(poses) < n:
+        rvec = np.array([rng.uniform(-c["tilt"], c["tilt"]), rng.uniform(-c["tilt"], c["tilt"]),
+                         rng.uniform(-c["roll"], c["roll"])])
+        z = rng.uniform(*c["z"])
+        target = np.array([rng.uniform(0.3, 0.7) * W, rng.uniform(0.3, 0.7) * H, 1.0])
+        tvec = z * (Kinv @ target) - rodrigues(rvec) @ center_b
+        ok = True
+        for K, d, (rv, tv) in ((rig.mtx1, rig.dist1, (rvec, tvec)),
+                               (rig.mtx2, rig.dist2, right_pose(rig, rvec, tvec))):
+            px = cm.project_points(outline, rv, tv, K, d).numpy()
+            m = c["margin_px"]
+            ok &= bool((px[:, 0] > m).all() and (px[:, 0] < W - 1 - m).all()
+                       and (px[:, 1] > m).all() and (px[:, 1] < H - 1 - m).all())
+        if ok:
+            poses.append((rvec, tvec))
+    return poses
+
+
+def right_pose(rig, rvec, tvec):
+    """The board's pose in the right camera: X_r = R X_l + T."""
+    import numpy as np
+    import torch
+
+    from recon3d_tpu_torch.calib import model as cm
+
+    R = np.asarray(rig.R, np.float64)
+    Rr = R @ rodrigues(rvec)
+    return cm.inv_rodrigues(torch.as_tensor(Rr)).numpy(), R @ tvec + rig.T.ravel()
+
+
+def render_board(K, dist, rvec, tvec, device, rows=60):
+    """The 9x6 board (10x7 squares, black 30 / white 220, a white surround)
+    seen by a camera with intrinsics K and distortion dist at the pose
+    (rvec, tvec), (H, W) uint8: each pixel the mean of supersample^2 rays,
+    each ray undistorted (20 fixed-point steps), cast and intersected with
+    the board's plane in float64 on `device`, then the lens's blur (a
+    Gaussian, CALIBRATION["lens_blur"]) and rounding to 8 bits."""
+    import numpy as np
+    import torch
+
+    from recon3d_tpu_torch.calib import model as cm
+    from recon3d_tpu_torch.ops import image as im
+
+    c = CALIBRATION
+    nx, ny = c["pattern"]
+    sq, ss = c["square"], c["supersample"]
+    f64 = dict(dtype=torch.float64, device=device)
+    R = torch.as_tensor(rodrigues(rvec), **f64)
+    t = torch.as_tensor(np.asarray(tvec, np.float64), **f64)
+    Kt, dt = torch.as_tensor(np.asarray(K), **f64), torch.as_tensor(np.asarray(dist), **f64)
+    off = (torch.arange(ss, **f64) + 0.5) / ss - 0.5
+    out = torch.empty((H, W), dtype=torch.float32, device=device)
+    u = torch.arange(W, **f64)
+    for y0 in range(0, H, rows):
+        v = torch.arange(y0, min(y0 + rows, H), **f64)
+        pu = u[None, :, None, None] + off[None, None, None, :]
+        pv = v[:, None, None, None] + off[None, None, :, None]
+        pts = torch.stack(torch.broadcast_tensors(pu, pv), -1)
+        xy = cm.undistort_points(pts, Kt, dt, iters=20)
+        ray = torch.cat([xy, torch.ones_like(xy[..., :1])], -1)
+        # the plane z_b = 0: R[:, 2] . (s ray - t) = 0
+        s = (R[:, 2] @ t) / (ray @ R[:, 2])
+        b = (s[..., None] * ray - t) @ R  # board coords: R^T (s ray - t)
+        i, j = torch.floor(b[..., 0] / sq), torch.floor(b[..., 1] / sq)
+        on = (i >= -1) & (i <= nx - 1) & (j >= -1) & (j <= ny - 1) & (s > 0)
+        black = on & (torch.remainder(i + j, 2) == 0)
+        val = torch.where(black, 30.0, 220.0).mean((-2, -1))
+        out[y0:y0 + v.shape[0]] = val
+    return torch.round(im.gaussian_blur(out, *c["lens_blur"])).to(torch.uint8)
+
+
+def board_views(device):
+    """The phase's inputs: pipeline_rig(), the board poses, the 15 rendered
+    pairs ((H, W) uint8 on `device`), the true corners of each view (V, N,
+    2) float64 and the initial corners (true + U(-0.75, 0.75) px, seeded),
+    float32."""
+    import numpy as np
+
+    from recon3d_tpu_torch.calib import chessboard as cb
+    from recon3d_tpu_torch.calib import model as cm
+
+    c = CALIBRATION
+    rig = pipeline_rig()
+    poses = board_poses(rig, c["pairs"], c["seed"])
+    obj = cb.chessboard_object_points(c["pattern"], c["square"])
+    imgs, truth = {"left": [], "right": []}, {"left": [], "right": []}
+    for rvec, tvec in poses:
+        for side, K, d, (rv, tv) in (("left", rig.mtx1, rig.dist1, (rvec, tvec)),
+                                     ("right", rig.mtx2, rig.dist2, right_pose(rig, rvec, tvec))):
+            imgs[side].append(render_board(K, d, rv, tv, device))
+            truth[side].append(cm.project_points(obj, rv, tv, K, d).numpy())
+    rng = np.random.RandomState(c["seed"] + 1)
+    truth = {k: np.stack(v) for k, v in truth.items()}
+    init = {k: (v + rng.uniform(-c["jitter_px"], c["jitter_px"], v.shape)).astype(np.float32)
+            for k, v in truth.items()}
+    return rig, poses, imgs, truth, init
+
+
+def calibration_phase(dev, counted, timed_frames, all_launches, fr):
+    """The calibration phase: calibrate -> rectify -> depth on the card.
+    15 rendered pairs of pipeline_rig() (board_views); corners refined by
+    corner_subpix from the stand-in detection; api.stereo_calibrate_camera
+    with its detection replaced by those corners (calibrate_camera x 2,
+    stereo_calibrate, stereo_rectify, the NPZ, the report) on the card, and
+    the same on the host in float64; a raw-schema NPZ of the result through
+    DepthPipeline.from_npz and one counted frame of the bench's raw pair;
+    the census cost and census SGM, card against host. `fr` carries the
+    frame context of main (raw_l, raw_r, gl, gr, dt, m, w, against,
+    frame_stats). The bars are checked after the phase's line."""
+    import numpy as np
+    import torch
+
+    from recon3d_tpu_torch.calib import api, chessboard as cb, lm, mono, npz, stereo
+    from recon3d_tpu_torch.depth import DepthPipeline, cost as dcost, sgm
+    from recon3d_tpu_torch.depth.matcher import disparity_to_depth
+    from recon3d_tpu_torch.ops import warp
+
+    t_phase = time.perf_counter()
+    c = CALIBRATION
+    out, bars, parts_s = {}, [], {}
+    stamp = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts_s[name] = round(now - stamp[0], 3)
+        stamp[0] = now
+
+    def bar(ok, what):
+        bars.append((bool(ok), f"calibration: {what}"))
+
+    # ---- the pairs and the stand-in detection
+    rig, poses, imgs, truth, init = board_views(dev)
+    torch.cuda.synchronize()
+    part("render")
+    V = c["pairs"]
+    refined = {}
+    t0 = time.perf_counter()
+    for side in ("left", "right"):
+        refined[side] = np.stack([cb.corner_subpix(
+            imgs[side][v].to(torch.float32), torch.as_tensor(init[side][v], device=dev)
+        ).cpu().numpy().astype(np.float64) for v in range(V)])
+    subpix_s = time.perf_counter() - t0
+    err = np.linalg.norm(np.concatenate([refined["left"] - truth["left"],
+                                         refined["right"] - truth["right"]]), axis=-1)
+    err0 = np.linalg.norm(np.concatenate([init["left"] - truth["left"],
+                                          init["right"] - truth["right"]]), axis=-1)
+    nh = c["host_refine_pairs"]
+    host_sub = max(float(np.abs(cb.corner_subpix(
+        imgs[side][v].cpu().to(torch.float32), torch.as_tensor(init[side][v])
+    ).numpy() - refined[side][v]).max()) for side in ("left", "right") for v in range(nh))
+    out["corners"] = {"views": 2 * V, "per_view": int(err.shape[1]), "subpix_s": round(subpix_s, 3),
+                      "initial_median_px": float(np.median(err0)),
+                      "vs_truth_median_px": float(np.median(err)),
+                      "vs_truth_max_px": float(err.max()),
+                      "card_vs_host_max_px": host_sub, "host_pairs": nh}
+    bar(np.median(err) <= 0.05 and err.max() <= 0.3, f"corners against the truth {out['corners']}")
+    bar(host_sub <= 1e-3, f"corner_subpix card against host {host_sub}")
+    part("corners")
+
+    # ---- calibrate: the API with its detection replaced by the refined corners
+    tmp = tempfile.TemporaryDirectory()
+    stand_in = (lambda il, ir, ps, detector="opencv", device="cuda":  # noqa: E731
+                ([refined["left"][v] for v in range(V)], [refined["right"][v] for v in range(V)],
+                 list(range(V))))
+    saved = {"detect": api.detect_corner_pairs, "lm": lm.levenberg_marquardt,
+             "mono": mono.calibrate_camera, "stereo": stereo.stereo_calibrate,
+             "rectify": stereo.stereo_rectify}
+    record = {"iterations": [], "stages_s": {}}
+
+    def lm_counted(*a, **k):
+        res = saved["lm"](*a, **k)
+        record["iterations"].append(res.iterations)
+        return res
+
+    def staged(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            if res[0].is_cuda:
+                torch.cuda.synchronize()
+            record["stages_s"][name] = round(record["stages_s"].get(name, 0.0)
+                                             + time.perf_counter() - t0, 4)
+            return res
+        return run
+
+    images = {side: [im_.cpu().numpy() for im_ in imgs[side]] for side in imgs}
+
+    def chain(device, tag):
+        record["iterations"], record["stages_s"] = [], {}
+        t0 = time.perf_counter()
+        params, info = api.stereo_calibrate_camera(
+            images["left"], images["right"], pattern_size=c["pattern"],
+            square_size=c["square"], save_path=os.path.join(tmp.name, f"{tag}.npz"),
+            report_path=os.path.join(tmp.name, f"{tag}_report.txt"), device=device)
+        it = record["iterations"]
+        return params, info, {"calibrate_s": round(time.perf_counter() - t0, 3),
+                              "stages_s": dict(record["stages_s"]),
+                              "lm_iterations": {"mono_left": it[0], "mono_right": it[1],
+                                                "pnp_sum": sum(it[2:-1]),
+                                                "pnp_max": max(it[2:-1]), "stereo": it[-1]}}
+
+    api.detect_corner_pairs = stand_in
+    lm.levenberg_marquardt = lm_counted
+    mono.calibrate_camera = staged("calibrate_camera", saved["mono"])
+    stereo.stereo_calibrate = staged("stereo_calibrate", saved["stereo"])
+    stereo.stereo_rectify = staged("stereo_rectify", saved["rectify"])
+    try:
+        (params, info, card_t), sites = sync_sites(lambda: chain(dev, "card"))
+        part("calibrate_card")
+        hparams, hinfo, host_t = chain("cpu", "host")
+        part("calibrate_host")
+    finally:
+        api.detect_corner_pairs = saved["detect"]
+        lm.levenberg_marquardt = saved["lm"]
+        mono.calibrate_camera = saved["mono"]
+        stereo.stereo_calibrate = saved["stereo"]
+        stereo.stereo_rectify = saved["rectify"]
+    # the port's syncs: not the stage timers' own synchronize
+    sites = {k: n for k, n in sites.items()
+             if not (k.startswith("chip_smoke.py") or "torch/cuda/__init__.py" in k)}
+    # the device's busy share over one calibrate_camera (the left camera's
+    # LM over 4 + 5 + 6 V parameters): a trace of the whole chain (~10^5
+    # short launches) takes the profiler half a minute to read
+    objs = torch.as_tensor(np.stack([cb.chessboard_object_points(c["pattern"], c["square"])] * V),
+                           device=dev)
+    prof, _ = device_profile(lambda: mono.calibrate_camera(
+        objs, torch.as_tensor(refined["left"], device=dev), (W, H)), top=4, host_ops=False)
+    part("profile")
+    report = open(os.path.join(tmp.name, "card_report.txt")).read()
+    saved_npz = npz.inspect(os.path.join(tmp.name, "card.npz"))
+
+    def rel(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(np.asarray(b)).max())
+
+    def absd(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+    vs_host = {k: rel(getattr(params, k), getattr(hparams, k))
+               for k in ("mtx1", "mtx2", "P1", "P2", "Q", "T")}
+    vs_host.update({k: absd(getattr(params, k), getattr(hparams, k))
+                    for k in ("dist1", "dist2", "R", "R1", "R2")})
+    vs_host.update({k: abs(info[k] - hinfo[k]) / abs(hinfo[k])
+                    for k in ("rms_left", "rms_right", "rms_stereo")})
+    for k in ("mtx1", "mtx2", "P1", "P2", "Q", "T"):
+        bar(vs_host[k] <= 1e-6, f"{k} card against host {vs_host[k]}")
+    for k, tol in (("dist1", 1e-6), ("dist2", 1e-6), ("R", 1e-8), ("R1", 1e-8), ("R2", 1e-8)):
+        bar(vs_host[k] <= tol, f"{k} card against host {vs_host[k]}")
+    for k in ("rms_left", "rms_right", "rms_stereo"):
+        bar(vs_host[k] <= 1e-8, f"{k} card against host {vs_host[k]}")
+
+    def angle(Ra, Rb):
+        cos = (np.trace(np.asarray(Ra) @ np.asarray(Rb).T) - 1.0) / 2.0
+        return float(np.arccos(np.clip(cos, -1.0, 1.0)))
+
+    vs_truth = {}
+    for cam, K, Kt in (("left", params.mtx1, rig.mtx1), ("right", params.mtx2, rig.mtx2)):
+        vs_truth[cam] = {"fx_rel": abs(K[0, 0] / Kt[0, 0] - 1.0),
+                         "fy_rel": abs(K[1, 1] / Kt[1, 1] - 1.0),
+                         "cx_px": abs(K[0, 2] - Kt[0, 2]), "cy_px": abs(K[1, 2] - Kt[1, 2])}
+        bar(vs_truth[cam]["fx_rel"] <= 2e-3 and vs_truth[cam]["fy_rel"] <= 2e-3
+            and vs_truth[cam]["cx_px"] <= 1.0 and vs_truth[cam]["cy_px"] <= 1.0,
+            f"{cam} intrinsics against the truth {vs_truth[cam]}")
+    vs_truth["T_norm_rel"] = abs(np.linalg.norm(params.T) / np.linalg.norm(rig.T) - 1.0)
+    vs_truth["R_rad"] = angle(params.R, rig.R)
+    vs_truth["dist1_max"] = absd(params.dist1.ravel(), rig.dist1.ravel())
+    vs_truth["dist2_max"] = absd(params.dist2.ravel(), rig.dist2.ravel())
+    bar(vs_truth["T_norm_rel"] <= 3e-3 and vs_truth["R_rad"] <= 1e-3,
+        f"rig against the truth {vs_truth}")
+    bar(info["rms_stereo"] <= 0.1, f"stereo rms {info['rms_stereo']}")
+    out.update(detection="stand-in: true projections + seeded U(-0.75, 0.75) px, refined by "
+                         "corner_subpix on the card (no OpenCV on this machine)",
+               card=card_t, host=host_t, sync_sites=sites, syncs=sum(sites.values()),
+               profile=prof,
+               rms={"left": info["rms_left"], "right": info["rms_right"],
+                    "stereo": info["rms_stereo"]},
+               vs_host=vs_host, vs_truth=vs_truth, npz_keys=sorted(saved_npz),
+               report_lines=report.count("\n"))
+    bar(sorted(saved_npz) == sorted(npz.STEREO_FULL_KEYS), f"NPZ keys {sorted(saved_npz)}")
+
+    # ---- depth from the result: a raw-schema NPZ through from_npz
+    raw_path = os.path.join(tmp.name, "raw.npz")
+    np.savez(raw_path, k1=params.mtx1, d1=params.dist1[0], k2=params.mtx2, d2=params.dist2[0],
+             R=params.R, T=params.T.ravel())
+    t0 = time.perf_counter()
+    pipe = DepthPipeline.from_npz(raw_path, (W, H), matcher_config=fr["m"], wls_config=fr["w"],
+                                  device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    part("from_npz")
+    bar(pipe.plans is not None, "from_npz: the maps are not row-monotonic")
+    raw_l, raw_r = fr["raw_l"], fr["raw_r"]
+    (p_disp, p_depth, _), launches = counted(
+        lambda: pipe.process(raw_l, raw_r), {"K1": 2, "K2": 1, "K3": 1, "K4": 1, "K6": 6})
+    all_launches["calibration"] = launches
+    plg = warp.remap_two_pass(raw_l, pipe.plans[0])
+    prg = warp.remap_two_pass(raw_r, pipe.plans[1])
+    u, vp = plain_disparity(plg, prg, fr["m"], fr["w"], 4)
+    rmse_plain = fr["against"](p_disp, p_disp > 0, u, u > 0, "calibration")
+    check(torch.allclose(p_depth, disparity_to_depth(u, pipe.Q), rtol=1e-3, atol=1e-4),
+          "calibration: depth differs from the plain frame")
+    del plg, prg, u, vp
+    stats = fr["frame_stats"](*timed_frames(lambda: pipe.process(raw_l, raw_r)), "calibration")
+    # the rectification maps against the true rig's, rectified the same way
+    true_path = os.path.join(tmp.name, "true_raw.npz")
+    np.savez(true_path, k1=rig.mtx1, d1=rig.dist1[0], k2=rig.mtx2, d2=rig.dist2[0], R=rig.R,
+             T=rig.T.ravel())
+    tp = npz.StereoParams.load(true_path)
+    f32 = [np.asarray(a, np.float32) for a in (tp.mtx1, tp.dist1, tp.mtx2, tp.dist2, tp.R, tp.T)]
+    rect_t = stereo.stereo_rectify(*f32[:4], (W, H), *f32[4:], device="cpu")
+    maps_t = (stereo.rectify_maps(tp.mtx1, tp.dist1, rect_t.R1.numpy(), rect_t.P1.numpy(), (W, H),
+                                  "cpu")
+              + stereo.rectify_maps(tp.mtx2, tp.dist2, rect_t.R2.numpy(), rect_t.P2.numpy(), (W, H),
+                                    "cpu"))
+    dmap = torch.cat([(a.cpu() - b).abs().reshape(-1) for a, b in zip(pipe.maps, maps_t)])
+    out["depth"] = {"init_s": round(init_s, 3), "launches": launches, **stats,
+                    "rmse_vs_plain_px": rmse_plain,
+                    "valid_fraction": round(float((p_disp > 0).float().mean()), 5),
+                    "maps_vs_truth_median_px": float(dmap.median()),
+                    "maps_vs_truth_max_px": float(dmap.max())}
+    bar(float(dmap.median()) <= c["maps_median_px"],
+        f"from_npz maps against the true rig's {out['depth']}")
+    del pipe, p_disp, p_depth, dmap
+    part("depth")
+
+    # ---- census: the cost volume on the rectified pair, then census SGM on
+    # the middle rows, card against host
+    gl, gr = fr["gl"], fr["gr"]
+    vol = dcost.census_cost_volume(gl, gr, D)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vol = dcost.census_cost_volume(gl, gr, D)
+    torch.cuda.synchronize()
+    census_ms = (time.perf_counter() - t0) * 1e3
+    vol_h = dcost.census_cost_volume(gl.cpu(), gr.cpu(), D)
+    census_equal = torch.equal(vol.cpu(), vol_h)
+    del vol, vol_h
+    r0, r1 = c["census_rows"]
+    kw = dict(num_disparities=D, cost_kind="census")
+    t0 = time.perf_counter()
+    d_c, v_c = sgm.sgm_disparity(gl[r0:r1], gr[r0:r1], **kw)
+    torch.cuda.synchronize()
+    sgm_ms = (time.perf_counter() - t0) * 1e3
+    d_h, v_h = sgm.sgm_disparity(gl[r0:r1].cpu(), gr[r0:r1].cpu(), **kw)
+    d_c, v_c = d_c.cpu(), v_c.cpu()
+    reg = torch.zeros_like(v_h)
+    reg[:, D + 2:] = True
+    both = v_c & v_h & reg
+    dd = float((d_c - d_h).abs()[both].max()) if bool(both.any()) else 0.0
+    dtr = fr["dt"][r0:r1].cpu()
+    scored = v_c & (dtr > 1.0)
+    out["census"] = {"volume_equal": census_equal, "volume_ms": round(census_ms, 3),
+                     "sgm_rows": [r0, r1], "sgm_ms": round(sgm_ms, 3),
+                     "sgm_valid_equal": torch.equal(v_c, v_h), "sgm_max_abs_diff": dd,
+                     "sgm_valid_fraction": round(float(v_c.float().mean()), 5),
+                     "sgm_rmse_vs_truth_px": float(torch.sqrt(((d_c - dtr)[scored] ** 2).mean()))}
+    bar(census_equal, "the census cost volume differs between card and host")
+    bar(out["census"]["sgm_valid_equal"] and dd < 1e-4, f"census SGM card against host {dd}")
+    part("census")
+    tmp.cleanup()
+    emit({"phase": "calibration", "frame": [H, W], "pairs": V, "pattern": list(c["pattern"]),
+          "square_m": c["square"], **out, "bars_failed": [w for ok, w in bars if not ok],
+          "parts_s": parts_s, "phase_s": round(time.perf_counter() - t_phase, 3)})
+    for ok, what in bars:
+        check(ok, what)
+
+
 def plain_disparity(gl, gr, m, w, num_directions):
     """compute_disparity's kernel path built from the plain versions (on the
     tensors' device): returns (dense WLS disparity, SGM valid mask)."""
@@ -1996,6 +2409,9 @@ def main():
 
     registration_phases(dev, counted, timed_frames, all_launches)
     streaming_phase(dev, counted, all_launches)
+    calibration_phase(dev, counted, timed_frames, all_launches,
+                      dict(raw_l=raw_l, raw_r=raw_r, gl=gl, gr=gr, dt=dt, m=m, w=w,
+                           against=against, frame_stats=frame_stats))
 
     # ---- kernels against their plain versions, on their paths' inputs
     rows = []

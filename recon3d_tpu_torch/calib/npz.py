@@ -1,6 +1,6 @@
 """Calibration NPZ archives (twin of recon3d_tpu/calib/npz.py: the schema
-key tuples and `StereoParams` with `load`, `save`, `validate_for_depth`,
-`baseline`). Host numpy.
+key tuples, `StereoParams` with `load`, `save`, `validate_for_depth`,
+`baseline`, and the `inspect` / `describe` dumps). Host numpy.
 
   STEREO_FULL  keys: mtx1,dist1,mtx2,dist2,R,T,E,F,R1,R2,P1,P2,Q
   STEREO_RAW   keys: k1,d1,k2,d2,R,T
@@ -10,7 +10,7 @@ key tuples and `StereoParams` with `load`, `save`, `validate_for_depth`,
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -69,3 +69,27 @@ class StereoParams:
         missing = [k for k in DEPTH_REQUIRED_KEYS if getattr(self, k, None) is None]
         if missing:
             raise KeyError(f"stereo params missing keys required for depth: {missing}")
+
+
+def inspect(path: str) -> Dict[str, tuple]:
+    """Key -> shape of every array in the archive."""
+    with np.load(path) as d:
+        return {k: tuple(d[k].shape) for k in d.files}
+
+
+def describe(path: str) -> str:
+    """Human-readable parameter report: every array (values when small),
+    the baseline and, from Q, the rectified focal and baseline."""
+    with np.load(path) as d:
+        lines = [f"Calibration file: {path}", "=" * 60]
+        for k in d.files:
+            a = d[k]
+            lines.append(f"\n{k}  shape={a.shape} dtype={a.dtype}")
+            if a.size <= 16:
+                lines.append(np.array2string(a, precision=6, suppress_small=True))
+        if "T" in d.files:
+            lines.append(f"\nBaseline |T| = {np.linalg.norm(d['T']):.6f}")
+        if "Q" in d.files and abs(d["Q"][3, 2]) > 1e-12:
+            lines.append(f"Rectified focal (Q[2,3]) = {d['Q'][2, 3]:.4f}")
+            lines.append(f"Baseline from Q = {1.0 / abs(d['Q'][3, 2]):.6f}")
+    return "\n".join(lines)

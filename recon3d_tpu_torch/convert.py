@@ -7,8 +7,10 @@ reprojection matrix Q, optionally the pinhole intrinsics as a 3x3 K, the
 stereo calibration (`stereo_params`), the two-pass warp plans
 (`remap_plan`), point clouds (`point_cloud`), TSDF volumes (`tsdf_volume`),
 triangle meshes (`triangle_mesh`), RGB-D frames (`rgbd_image`), pinhole
-intrinsics (`camera_intrinsics`) and pose graphs (`pose_graph`); all arrive
-as plain Python / numpy. The JAX backends map onto the port's: 'pallas' ->
+intrinsics (`camera_intrinsics`), pose graphs (`pose_graph`) and the
+calibration stages' results (`calibration_result`,
+`stereo_calibration_result`, `rectify_result`); all arrive as plain Python
+/ numpy. The JAX backends map onto the port's: 'pallas' ->
 'cuda', 'xla' -> 'torch'.
 """
 from __future__ import annotations
@@ -19,7 +21,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from recon3d_tpu_torch.calib.mono import CalibrationResult
 from recon3d_tpu_torch.calib.npz import StereoParams
+from recon3d_tpu_torch.calib.stereo import RectifyResult, StereoCalibrationResult
 from recon3d_tpu_torch.config import (FusionConfig, MeshConfig, ProcessingConfig,
                                       StereoMatcherConfig, WLSConfig)
 from recon3d_tpu_torch.fusion.tsdf import TSDFVolume
@@ -152,3 +156,24 @@ def pose_graph(nodes, edges) -> PoseGraph:
         g.add_edge(int(e["source"]), int(e["target"]), e["transformation"], e["information"],
                    bool(e["uncertain"]))
     return g
+
+
+def _tensors(cls, fields: dict, device):
+    """A result NamedTuple of the port from the JAX one's ``_asdict()`` with
+    numpy arrays, each field as a tensor of its own dtype on `device`."""
+    return cls(**{k: torch.as_tensor(np.array(fields[k]), device=device) for k in cls._fields})
+
+
+def calibration_result(fields: dict, device="cuda") -> CalibrationResult:
+    """The port's CalibrationResult (calib/mono.py) from the JAX one's fields."""
+    return _tensors(CalibrationResult, fields, device)
+
+
+def stereo_calibration_result(fields: dict, device="cuda") -> StereoCalibrationResult:
+    """The port's StereoCalibrationResult from the JAX one's fields."""
+    return _tensors(StereoCalibrationResult, fields, device)
+
+
+def rectify_result(fields: dict, device="cuda") -> RectifyResult:
+    """The port's RectifyResult (R1, R2, P1, P2, Q) from the JAX one's fields."""
+    return _tensors(RectifyResult, fields, device)

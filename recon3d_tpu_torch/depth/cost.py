@@ -1,6 +1,7 @@
-"""Stereo matching cost: Birchfield-Tomasi on the x-Sobel prefilter (twin of
-recon3d_tpu/depth/cost.py: `xsobel_prefilter`, `_bt_bounds`,
-`bt_cost_volume`, `box_aggregate`).
+"""Stereo matching costs: Birchfield-Tomasi on the x-Sobel prefilter and
+the census transform's Hamming distance (twin of recon3d_tpu/depth/cost.py:
+`xsobel_prefilter`, `_bt_bounds`, `bt_cost_volume`, `box_aggregate`,
+`census_cost_volume`).
 
 Cost volumes are (H, W, D) float32 with the disparity on the last axis, the
 JAX package's layout.
@@ -77,3 +78,50 @@ def box_aggregate(cost: torch.Tensor, block_size: int = 5) -> torch.Tensor:
         return out
 
     return box1d(box1d(cost, 0), 1)
+
+
+def _census(g: torch.Tensor, window: int) -> torch.Tensor:
+    """window x window census words (bit i = neighbour i > center, replicate
+    borders), int32: window 5 gives 24 bits."""
+    H, W = g.shape
+    r = window // 2
+    gp = g[_edge_index(H, r, r, g.device)][:, _edge_index(W, r, r, g.device)]
+    word = torch.zeros((H, W), dtype=torch.int32, device=g.device)
+    bit = 0
+    for dy in range(window):
+        for dx in range(window):
+            if dy == r and dx == r:
+                continue
+            if bit < 32:
+                word |= (gp[dy:dy + H, dx:dx + W] > g).to(torch.int32) << bit
+            bit += 1
+    return word
+
+
+def _popcount(v: torch.Tensor) -> torch.Tensor:
+    """Set bits of non-negative int32 words below 2^24, without a product
+    that could overflow."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    v = v + (v >> 8)
+    v = v + (v >> 16)
+    return v & 0x3F
+
+
+def census_cost_volume(left: torch.Tensor, right: torch.Tensor, num_disparities: int = 128,
+                       min_disparity: int = 0, window: int = 5) -> torch.Tensor:
+    """Census-transform Hamming cost volume (H, W, D), float32 (integer
+    valued, exact): cost(y, x, d) = popcount(census_l(y, x) ^
+    census_r(y, x - (min_disparity + d))); out-of-range samples get 1e9."""
+    L = left.to(torch.float32)
+    cl = _census(L, window)
+    cr = _census(right.to(torch.float32), window)
+    H, W = cl.shape
+    x = torch.arange(W, device=L.device)
+    out = torch.empty((H, W, num_disparities), dtype=torch.float32, device=L.device)
+    for d in range(num_disparities):
+        shift = min_disparity + d
+        h = _popcount(cl ^ torch.roll(cr, shift, 1)).to(torch.float32)
+        out[:, :, d] = torch.where(x - shift >= 0, h, torch.full_like(h, 1e9))
+    return out

@@ -8,6 +8,7 @@ falls back to when a map is not monotonic along its rows.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -92,13 +93,17 @@ class DepthPipeline:
 
     @classmethod
     def from_npz(cls, path: str, image_size: Tuple[int, int], **kw) -> "DepthPipeline":
+        """A pipeline from a stereo NPZ: the full schema as saved, or the raw
+        one (k1, d1, k2, d2, R, T), whose rectification is computed here by
+        `stereo_rectify` in float32 on the host, as the JAX package computes
+        it (64-bit floats off)."""
         params = StereoParams.load(path)
         if params.R1 is None:
-            raise NotImplementedError(
-                f"{path} is a raw-schema NPZ (no R1/R2/P1/P2/Q): rectifying it needs "
-                "calib.stereo.stereo_rectify (cv2.stereoRectify), which the port does not "
-                "have yet (ROADMAP.md, 'Mesh and calibration'); save the full stereo "
-                "schema with the JAX package instead")
+            f32 = [np.asarray(a, np.float32) for a in (params.mtx1, params.dist1, params.mtx2,
+                                                       params.dist2, params.R, params.T)]
+            rect = _stereo.stereo_rectify(*f32[:4], image_size, *f32[4:], device="cpu")
+            params = dataclasses.replace(params, **{k: v.numpy() for k, v in
+                                                    rect._asdict().items()})
         return cls(params, image_size, **kw)
 
     def adjust(self, key: str) -> None:

@@ -231,16 +231,24 @@ def sgm_disparity(
     cost_kind: str = "bt",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full SGM: gray pair -> (disparity float32 incl. min_disparity, -1 on
-    invalid pixels; valid bool). Only the 'bt' cost is ported."""
+    invalid pixels; valid bool). cost_kind 'bt' (Birchfield-Tomasi on the
+    x-Sobel prefilter) or 'census' (5x5 census Hamming, with the penalties
+    scaled to its range)."""
     if p1 is None:
         p1 = 8.0 * block_size * block_size
     if p2 is None:
         p2 = 32.0 * block_size * block_size
-    if cost_kind != "bt":
+    if cost_kind == "bt":
+        lpre = _cost.xsobel_prefilter(left_gray, pre_filter_cap)
+        rpre = _cost.xsobel_prefilter(right_gray, pre_filter_cap)
+        vol = _cost.bt_cost_volume(lpre, rpre, num_disparities, min_disparity)
+    elif cost_kind == "census":
+        vol = _cost.census_cost_volume(left_gray, right_gray, num_disparities, min_disparity)
+        # census costs are small (<= 24): scale the penalties accordingly
+        p1 = p1 / (8.0 * block_size * block_size) * 6.0
+        p2 = p2 / (32.0 * block_size * block_size) * 64.0
+    else:
         raise ValueError(f"unknown cost kind {cost_kind}")
-    lpre = _cost.xsobel_prefilter(left_gray, pre_filter_cap)
-    rpre = _cost.xsobel_prefilter(right_gray, pre_filter_cap)
-    vol = _cost.bt_cost_volume(lpre, rpre, num_disparities, min_disparity)
     # zero (not sentinel) out-of-range cells before the box, then mark every
     # window that touches one: [x - r, x + r] crosses x - (min_disp + d) < 0
     # iff x < min_disp + d + r

@@ -1,8 +1,9 @@
 """Dense image ops on the depth and odometry paths (twin of
 recon3d_tpu/ops/image.py: `rgb_to_gray`, `normalize_minmax`, `colormap_jet`,
-`gaussian_blur`, `central_gradients`, `bilinear_sample`, `remap`,
-`sweep_bilinear_stack`, `pyramid`), and `matmul3`, the 3x3 product as the
-JAX package rounds it.
+`histogram_equalize`, `gaussian_blur`, `sobel`, `central_gradients`,
+`bilinear_sample`, `remap`, `sweep_bilinear_stack`, `pyramid`,
+`resize_bilinear`), and `matmul3`, the 3x3 product as the JAX package
+rounds it.
 
 Where the JAX package computes a * b + c, XLA contracts it into one fused
 multiply-add; `fma` computes that single rounding, so the port's bilinear
@@ -37,6 +38,22 @@ def colormap_jet(norm01: torch.Tensor) -> torch.Tensor:
     g = torch.clamp(torch.minimum(four - 0.5, -four + 3.5), 0.0, 1.0)
     b = torch.clamp(torch.minimum(four + 0.5, -four + 2.5), 0.0, 1.0)
     return torch.stack([r, g, b], -1)
+
+
+def histogram_equalize(gray: torch.Tensor) -> torch.Tensor:
+    """cv2.equalizeHist on a uint8-range image (values 0..255), float32 in
+    the same range. Integer counts and float32 arithmetic in the JAX
+    package's order (both roundings half to even), so the result is exact."""
+    g = torch.clamp(torch.round(gray.to(torch.float32)), 0, 255).to(torch.int32)
+    hist = torch.bincount(g.reshape(-1).long(), minlength=256).to(torch.int32)
+    cdf = torch.cumsum(hist, 0, dtype=torch.int32)
+    total = g.numel()
+    # OpenCV: scale by 255 / (N - cdf(min nonzero)), lut = round((cdf - cdfmin) * scale)
+    nonzero_min = torch.min(torch.where(hist > 0, cdf, torch.full_like(cdf, total + 1)))
+    denom = torch.clamp(total - nonzero_min, min=1)
+    lut = torch.clamp(torch.round((cdf - nonzero_min).to(torch.float32) * 255.0
+                                  / denom.to(torch.float32)), 0, 255)
+    return lut[g.long()]
 
 
 def _gaussian_kernel1d(ksize: int, sigma: float, device=None) -> torch.Tensor:
@@ -74,6 +91,23 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 5, sigma: float = 0.0) -> torc
     xp = F.pad(xc, (pad, pad, 0, 0), mode="reflect")
     out = _conv_taps(xp, k, 3, W)[0].permute(1, 2, 0)
     return out[..., 0] if squeeze else out
+
+
+def sobel(gray: torch.Tensor):
+    """3x3 Sobel gradients (gx, gy) with reflect-101 borders, each the exact
+    sum of its taps rounded once to float32 (summed in float64: the same on
+    every device; XLA's convolution sums in an order of its own, within a
+    few ulps of this)."""
+    g = gray.to(torch.float32)
+    H, W = g.shape
+    gp = F.pad(g[None, None], (1, 1, 1, 1), mode="reflect")[0, 0].to(torch.float64)
+
+    def tap(dy, dx):
+        return gp[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+
+    gx = (tap(-1, 1) - tap(-1, -1)) + 2.0 * (tap(0, 1) - tap(0, -1)) + (tap(1, 1) - tap(1, -1))
+    gy = (tap(1, -1) - tap(-1, -1)) + 2.0 * (tap(1, 0) - tap(-1, 0)) + (tap(1, 1) - tap(-1, 1))
+    return gx.to(torch.float32), gy.to(torch.float32)
 
 
 def central_gradients(gray: torch.Tensor):
@@ -144,8 +178,16 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     """Sample img (H, W[, C]) at float coords (x, y); constant border.
 
     The core of cv2.remap(INTER_LINEAR, BORDER_CONSTANT). x / y may be any
-    (broadcastable) shape; returns samples of that shape [+C].
+    (broadcastable) shape; returns samples of that shape [+C]. The weighted
+    sum is contracted into fused multiply-adds as XLA contracts it inside
+    jit.
     """
+    return _bilinear(img, x, y, border_value, True)
+
+
+def _bilinear(img, x, y, border_value, contract):
+    """bilinear_sample; contract=False rounds every product and sum on its
+    own, as the JAX package's function does when called outside jit."""
     H, W = img.shape[0], img.shape[1]
     x0 = torch.floor(x)
     y0 = torch.floor(y)
@@ -159,8 +201,8 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         inb = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
         if img.ndim == 3:
             inb = inb[..., None]
-        return torch.where(inb, v, torch.tensor(border_value, dtype=img.dtype,
-                                                 device=img.device))
+        return torch.where(inb, v, torch.full((), border_value, dtype=img.dtype,
+                                              device=img.device))
 
     w00 = (1 - fx) * (1 - fy)
     w10 = fx * (1 - fy)
@@ -168,10 +210,14 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     w11 = fx * fy
     if img.ndim == 3:
         w00, w10, w01, w11 = (w[..., None] for w in (w00, w10, w01, w11))
+    g00, g10 = gather(y0i, x0i), gather(y0i, x0i + 1)
+    g01, g11 = gather(y0i + 1, x0i), gather(y0i + 1, x0i + 1)
+    if not contract:
+        return ((w00 * g00 + w10 * g10) + w01 * g01) + w11 * g11
     # ((w00 g00 + w10 g10) + w01 g01) + w11 g11, contracted as XLA does
-    out = fma(w00, gather(y0i, x0i), w10 * gather(y0i, x0i + 1))
-    out = fma(w01, gather(y0i + 1, x0i), out)
-    return fma(w11, gather(y0i + 1, x0i + 1), out)
+    out = fma(w00, g00, w10 * g10)
+    out = fma(w01, g01, out)
+    return fma(w11, g11, out)
 
 
 def remap(img: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor,
@@ -226,3 +272,17 @@ def sweep_bilinear_stack(imgs: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     valid = vx & (out[-1] > 0.999)
     return torch.where(valid[None], out[:-1],
                        torch.tensor(border_value, dtype=stack.dtype, device=stack.device))
+
+
+def resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:
+    """cv2.resize(INTER_LINEAR) with half-pixel alignment, clamp-to-edge
+    sampling (cv2.resize replicates the border); each operation rounds on
+    its own, as the JAX package's function does outside jit."""
+    H, W = img.shape[:2]
+    h, w = out_hw
+    ys = (torch.arange(h, dtype=torch.float32, device=img.device) + 0.5) * (H / h) - 0.5
+    xs = (torch.arange(w, dtype=torch.float32, device=img.device) + 0.5) * (W / w) - 0.5
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    gy = torch.clamp(gy, 0.0, H - 1.0)
+    gx = torch.clamp(gx, 0.0, W - 1.0)
+    return _bilinear(img, gx, gy, 0.0, False)

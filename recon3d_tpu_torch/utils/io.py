@@ -1,22 +1,26 @@
-"""PLY file I/O (twin of the PLY half of recon3d_tpu/utils/io.py): point
-clouds and triangle meshes.
+"""File I/O (twin of recon3d_tpu/utils/io.py): PLY point clouds and
+triangle meshes, and the PNG color / depth frames of a scan directory.
 
 Replaces the reference's Open3D I/O: o3d.io.write_point_cloud /
 read_point_cloud (main.py:76, pointcloud_processing.py:24) and
 o3d.io.write_triangle_mesh (mesh_saving.py:14-21). The codec reads the
 flavor Open3D writes (binary little endian, double precision, uchar colors)
 and writes the JAX package's files byte for byte, header comment included.
-Everything here runs on the host in numpy; readers put the result on
+PNG frames go through the native codec of utils/native.py (8-bit color,
+16-bit depth in raw sensor units); a file it refuses raises. Everything
+here runs on the host in numpy; readers of clouds put the result on
 `device`.
 """
 from __future__ import annotations
 
+import glob
 import io as _io
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from recon3d_tpu_torch.utils import native
 from recon3d_tpu_torch.utils.types import PointCloud, TriangleMesh
 
 _PLY_DTYPES = {
@@ -241,3 +245,63 @@ def write_triangle_mesh(path: str, mesh: TriangleMesh, binary: bool = True) -> i
 def read_triangle_mesh(path: str) -> Dict[str, np.ndarray]:
     """Read a mesh PLY into raw arrays (points/triangles/colors/normals)."""
     return read_ply(path)
+
+
+# ---------------------------------------------------------------- PNG images
+
+def read_color(path: str) -> np.ndarray:
+    """Read an 8-bit PNG -> (H, W, 3) uint8 (gray repeated, alpha dropped)."""
+    img = native.png_read(path)
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: a 16-bit PNG is not a color image")
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def read_depth_raw(path: str) -> np.ndarray:
+    """Read a gray depth PNG -> (H, W) uint16 in raw sensor units
+    (millimeters for the reference's captures): the wire format the
+    streaming producer ships to the device."""
+    raw = native.png_read(path)
+    if raw.ndim != 2:
+        raise ValueError(f"{path}: a depth PNG has one channel, not {raw.shape[2]}")
+    return np.asarray(raw, np.uint16)
+
+
+def read_depth(path: str, depth_scale: float = 1000.0) -> np.ndarray:
+    """Read a 16-bit depth PNG -> (H, W) float32 meters (raw / depth_scale)."""
+    return read_depth_raw(path).astype(np.float32) / float(depth_scale)
+
+
+def load_rgbd_frames_batch(directory: str, depth_scale: float = 1000.0,
+                           max_frames: Optional[int] = None
+                           ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Load the color_*.png / depth_*.png pairs of a scan directory, decoded
+    in parallel by the native thread pool: a list of (color (H, W, 3) u8,
+    depth (H, W) f32 meters)."""
+    cp = sorted(glob.glob(os.path.join(directory, "color_*.png")))
+    dp = sorted(glob.glob(os.path.join(directory, "depth_*.png")))
+    n = min(len(cp), len(dp))
+    if max_frames is not None:
+        n = min(n, max_frames)
+    cp, dp = cp[:n], dp[:n]
+    if not n:
+        return []
+    h, w = read_color(cp[0]).shape[:2]
+    colors, depths = native.load_rgbd_batch(cp, dp, w, h)
+    return [(colors[i], depths[i].astype(np.float32) / float(depth_scale)) for i in range(n)]
+
+
+def write_color(path: str, img: np.ndarray) -> None:
+    """Write (H, W, 3) or (H, W) uint8 as an 8-bit PNG."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    native.png_write(path, np.asarray(img, np.uint8))
+
+
+def write_depth(path: str, depth_m: np.ndarray, depth_scale: float = 1000.0) -> None:
+    """Write float meters as a uint16 PNG of raw units (meters x depth_scale,
+    clipped to 0..65535)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    raw = np.clip(np.asarray(depth_m, np.float64) * depth_scale, 0, 65535).astype(np.uint16)
+    native.png_write(path, raw)

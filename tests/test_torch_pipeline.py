@@ -107,8 +107,11 @@ def test_rectify_maps_match(dist_len):
         for o, r in zip(out, ref):
             assert o.dtype == torch.float32 and o.shape == (H, W)
             np.testing.assert_array_equal(o.numpy(), np.asarray(r))
-    np.testing.assert_array_equal(model.pad_dist(tp.dist1).numpy(),
-                                  np.asarray(jmodel.pad_dist(jnp.asarray(jp.dist1))))
+    # jnp.asarray makes the float64 vector float32 with 64-bit floats off;
+    # the port's pad_dist keeps the dtype it is given
+    np.testing.assert_array_equal(
+        model.pad_dist(torch.as_tensor(tp.dist1, dtype=torch.float32)).numpy(),
+        np.asarray(jmodel.pad_dist(jnp.asarray(jp.dist1))))
     np.testing.assert_allclose(model.tilt_matrix(0.01, -0.005).numpy(),
                                np.asarray(jmodel.tilt_matrix(0.01, -0.005, jnp.float32)),
                                atol=1e-6)
@@ -135,8 +138,16 @@ def test_stereo_params_roundtrip_and_validation(tmp_path):
     assert raw.T.shape == (3, 1) and raw.dist1.shape == (1, 5) and raw.R1 is None
     with pytest.raises(KeyError, match="R1"):
         raw.validate_for_depth()
-    with pytest.raises(NotImplementedError, match="stereo_rectify"):
-        DepthPipeline.from_npz(str(tmp_path / "raw.npz"), (W, H), device="cpu")
+    # a raw-schema NPZ: from_npz rectifies it in float32 on the host, as the
+    # JAX package does with 64-bit floats off
+    jpipe = jpipeline.DepthPipeline.from_npz(str(tmp_path / "raw.npz"), (W, H))
+    tpipe = DepthPipeline.from_npz(str(tmp_path / "raw.npz"), (W, H), device="cpu")
+    for k in ("R1", "R2", "P1", "P2", "Q"):
+        ref = np.asarray(getattr(jpipe.params, k))
+        np.testing.assert_allclose(getattr(tpipe.params, k), ref, rtol=2e-6,
+                                   atol=2e-6 * np.abs(ref).max(), err_msg=k)
+    for o, r in zip(tpipe.maps, jpipe.maps):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0, atol=1e-3)
     np.savez(str(tmp_path / "bad.npz"), k=jp.mtx1)
     with pytest.raises(ValueError, match="unrecognized"):
         npz.StereoParams.load(str(tmp_path / "bad.npz"))
