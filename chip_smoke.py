@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive recon3d_tpu_torch's depth, point-cloud, fusion, registration,
-streaming and calibration paths on one NVIDIA H100 and hold every kernel on
-them to its plain PyTorch version.
+streaming, calibration and scanner paths on one NVIDIA H100 and hold every
+kernel on them to its plain PyTorch version.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -78,7 +78,8 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               pose graph, each pair's fitness / rmse, the pose error
               against true_pose(k), and the chain of the first 4 frames on
               the card against the same on the host CPU (the same CPU-drawn
-              RANSAC trials);
+              RANSAC trials), and each 4-frame graph's edges' final
+              line-process weights (pruned below 0.25), card and host;
   odometry    compute_rgbd_odometry on frames 0 -> 1 (3 levels, 10 sweeps
               each, gathers): median ms of 10, the busy share, the error
               against the truth (5 mm / 0.01) and against the host's run;
@@ -105,8 +106,8 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               _fuse_frames (its stages timed, profile=True); the host
               syncs a step makes
               (torch.cuda's sync debug mode, by line); the host CPU's first
-              3 frames (trajectory within 1e-4); DepthFilterBank()'s ms a
-              frame on the 30 depth frames;
+              2 frames (trajectory within 1e-4); DepthFilterBank()'s ms a
+              frame on the first 10 depth frames;
   calibration calibrate -> rectify -> depth: 15 stereo pairs of a 9x6 board
               (square 0.04 m) rendered at 1920x1080 through pipeline_rig()'s
               cameras (anti-aliased, a lens blur, 8 bits); initial corners
@@ -124,6 +125,34 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               maps against the true rig's; census_cost_volume on the
               rectified pair and census SGM on its rows 270-810, card
               against host, and its RMSE against the analytic disparity;
+  offline     Scanner3D(SyntheticRGBDCamera(640, 480, 16 frames),
+              ScannerConfig()).run(16): capture + PNG checkpoints, 16
+              preprocessed clouds, 15 sequential and 3 loop pairs through
+              register_pairs_ransac_batched, the pose graph, 16 integrates
+              (K9 once each, no other kernel), extract, PLY; ms a stage and
+              peak memory. Bars: two pairs (the first sequential, the first
+              loop) bitwise their per-pair registration_ransac_fpfh +
+              information_matrix; every node's sphere center within 5 mm and
+              plane normal within 5e-3 of the truth; the mesh's median
+              distance to the scene under a voxel (0.004 m); 16 PNG pairs
+              replayed by FakeRGBDCamera (colors equal, the raw depth the
+              writer's truncation, within 1 / depth_scale);
+              integrate_saved_frames on the first 8 (K9 8) bitwise the same
+              _fuse_one loop. It also gives the pose graph's kept edges on
+              the card and the host CPU, and its weights on the host CPU;
+  scanner     StreamingScanner(SyntheticRGBDCamera(640, 480, 10 frames),
+              ScannerConfig()): start(max_frames=10), join, stop, finalize
+              (K7 1 and K8 1 in the normals: the processed cloud's capacity
+              is 2^18, past the 32,768-point switch; its valid count is
+              printed); frames_rejected, ms an accumulate step, finalize's
+              stages, the host syncs of one accumulate step by line, peak
+              memory. Bars: every frame processed, every path written;
+              Poisson's indicator at depth 6 on the finalized oriented cloud
+              bitwise between two card runs and within 1e-5 of its maximum
+              of the host CPU's (densities rtol 1e-5 over a floor of 1e-6 of
+              the maximum); the mesh's median distance to the scene, over
+              the vertices above MeshConfig().density_quantile, under one
+              Poisson cell;
   kernels     each kernel against its plain version on its path's own
               inputs (bitwise: K2 on the rectified and the warped pair, with
               and without the downward path; K6 on both axes; K8 both
@@ -142,7 +171,10 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               without the downward path, K6 each axis; K4 (v3 read only,
               checked) and K12 bitwise, each also timed without the LR
               check (no right view); K9's row also gives its launches on the
-              streaming path (`streaming_launches`).
+              streaming, offline and replay paths (`streaming_launches`,
+              `offline_launches`, `offline_replay_launches`), K7's and the
+              fused K8's scan_post rows theirs on the scanner path
+              (`scanner_launches`).
 Each path runs once with every launch counter at 0 before it, and the
 counts it leaves must be the path's kernels exactly. The frames record fps
 (median of 10 frames after 2 warm-ups), peak memory (a single-device frame
@@ -158,6 +190,7 @@ exits nonzero before any result.
 """
 import dataclasses
 import faulthandler
+import glob
 import inspect
 import json
 import os
@@ -217,6 +250,14 @@ CALIBRATION = dict(pairs=15, pattern=(9, 6), square=0.04, z=(0.6, 1.2), tilt=0.4
                    # true rig's: 1.5 x the JAX package's median on these renders
                    # and corners (1.6943 px, measured on the host CPU)
                    maps_median_px=1.5 * 1.6943)
+
+# the offline phase: Scanner3D.run at ScannerConfig()'s defaults on 16
+# capture frames (run()'s default count), its PNG checkpoints re-integrated
+# by integrate_saved_frames on the first 8 into a 256^3 volume
+OFFLINE = dict(width=640, height=480, frames=16, replay_frames=8, replay_resolution=256)
+# the scanner phase: StreamingScanner at ScannerConfig()'s defaults on 10
+# capture frames (the JAX test's flow at full width)
+SCANNER = dict(width=640, height=480, frames=10, timeout_s=300)
 
 
 def emit(obj):
@@ -537,7 +578,7 @@ def k8_operations(pk, counts, G, C, fused):
 
 
 
-def registration_chain(frames, intr, dev, times=None):
+def registration_chain(frames, intr, dev, times=None, optimize=True):
     """Scanner3D.register_fragments' chain (pipeline/offline.py:533-613) at
     ScannerConfig()'s defaults on `dev`, the pairs one at a time: each
     frame backprojected (depth_trunc 3), voxel 0.02, compacted to 8192,
@@ -546,8 +587,9 @@ def registration_chain(frames, intr, dev, times=None):
     through registration_ransac_fpfh (0.03, 65536 trials, seed 0,
     point-to-plane refine) and information_matrix; then the pose graph
     (identity + uncertain edge for a weak sequential pair, good loop pairs
-    as uncertain edges) through global_optimization. Returns the per-pair
-    dicts, the graph before and after the optimization, the clouds and
+    as uncertain edges) through global_optimization (not with
+    optimize=False). Returns the per-pair dicts, the graph before and
+    after the optimization (None if not optimized), the clouds and
     their features; `times` collects host-clock ms a stage, each ending in
     a synchronize."""
     import numpy as np
@@ -599,7 +641,7 @@ def registration_chain(frames, intr, dev, times=None):
                         "points": int(clouds[i].valid.sum())})
         times.setdefault("pair", []).append((clock() - t0) * 1e3)
     t0 = clock()
-    graph, optimized = chain_graph(results, n, dev)
+    graph, optimized = chain_graph(results, n, dev, optimize)
     times.setdefault("pose_graph", []).append((clock() - t0) * 1e3)
     return {"pairs": results, "graph": optimized, "graph_in": graph, "clouds": clouds,
             "feats": feats}
@@ -612,11 +654,11 @@ def chain_pairs(n):
     return [(i, i - 1) for i in range(1, n)] + [(i, i - stride) for i in range(stride, n, stride)]
 
 
-def chain_graph(results, n, dev):
+def chain_graph(results, n, dev, optimize=True):
     """The chain's pose graph on n frames from its pairs' dicts, in
     chain_pairs(n)'s order (identity + uncertain edge for a weak sequential
     pair, good loop pairs as uncertain edges), and that graph after
-    global_optimization on `dev`."""
+    global_optimization on `dev` (None with optimize=False)."""
     import numpy as np
 
     from recon3d_tpu_torch.registration.posegraph import PoseGraph, global_optimization
@@ -634,7 +676,7 @@ def chain_graph(results, n, dev):
     for r in results[n - 1:]:
         if r["good"]:
             graph.add_edge(*r["pair"], r["T"], r["info"], uncertain=True)
-    return graph, global_optimization(graph, device=dev)
+    return graph, global_optimization(graph, device=dev) if optimize else None
 
 
 def scene_motion(Ta, Tb, cam_from_world):
@@ -688,15 +730,17 @@ def registration_phases(dev, counted, timed_frames, all_launches):
     # the card
     n_cpu = rg["cpu_frames"]
     t0 = time.perf_counter()
-    host = registration_chain(reg_frames[:n_cpu], reg_intr, "cpu")
+    host = registration_chain(reg_frames[:n_cpu], reg_intr, "cpu", optimize=False)
     cpu_chain_s = time.perf_counter() - t0
     by_pair = {r["pair"]: r for r in reg_pairs}
     check(all(p in by_pair for p in chain_pairs(n_cpu)),
           "registration: the host's pairs are not pairs of the card's run")
     card_pairs = [by_pair[p] for p in chain_pairs(n_cpu)]
-    card_graph = chain_graph(card_pairs, n_cpu, dev)[1]
-    card_nodes = card_graph.nodes
-    cpu_pairs, cpu_graph = host["pairs"], host["graph"]
+    # each 4-frame graph solved once, its nodes, kept edges and weights read
+    card_nodes, card_edges, card_weights = solve_graph(
+        chain_graph(card_pairs, n_cpu, dev, optimize=False)[0], dev)
+    cpu_nodes, cpu_edges, cpu_weights = solve_graph(host["graph_in"], "cpu")
+    cpu_pairs = host["pairs"]
     nodes = np.stack(reg_graph.nodes)
     check(len(nodes) == rg["frames"] and np.isfinite(nodes).all(),
           "registration: the pose graph lost a node or holds a non-finite pose")
@@ -706,7 +750,7 @@ def registration_phases(dev, counted, timed_frames, all_launches):
     # frame) and a node against the host's and the truth (in frame 0's)
     vs_cpu_pair = [scene_motion(a["T"], b["T"], rcam.true_pose(a["pair"][1]))
                    for a, b in zip(card_pairs, cpu_pairs)]
-    vs_cpu_node = [scene_motion(a, b, pose0) for a, b in zip(card_nodes, cpu_graph.nodes)]
+    vs_cpu_node = [scene_motion(a, b, pose0) for a, b in zip(card_nodes, cpu_nodes)]
     vs_truth = [scene_motion(a, b, pose0) for a, b in zip(nodes, truth)]
     worst = lambda rows, i: max(r[i] for r in rows)  # noqa: E731
     good_cpu_only = [a["pair"] for a, b in zip(card_pairs, cpu_pairs)
@@ -776,8 +820,12 @@ def registration_phases(dev, counted, timed_frames, all_launches):
           "rmse": [round(r["rmse"], 7) for r in reg_pairs],
           "icp_iterations": [r["iterations"] for r in reg_pairs],
           "good": [r["good"] for r in reg_pairs], "points": [r["points"] for r in reg_pairs],
-          "edges": len(reg_graph.edges), "card_edges_cpu_frames": len(card_graph.edges),
-          "cpu_edges": len(cpu_graph.edges),
+          "edges": len(reg_graph.edges), "card_edges_cpu_frames": card_edges,
+          "cpu_edges": cpu_edges,
+          # the pruning's input: each edge's final line-process weight (pruned
+          # below 0.25), the card's and the host's graphs on the same 4 frames
+          "edge_weights_card_cpu_frames": card_weights, "cpu_edge_weights": cpu_weights,
+          "card_good_cpu_frames": [r["good"] for r in card_pairs],
           "pose_err_max": float(max(np.abs(a - b).max() for a, b in zip(nodes, truth))),
           "translation_err_max_m": float(max(np.linalg.norm(a[:3, 3] - b[:3, 3])
                                              for a, b in zip(nodes, truth))),
@@ -1628,6 +1676,297 @@ def calibration_phase(dev, counted, timed_frames, all_launches, fr):
         check(ok, what)
 
 
+def solve_graph(graph, dev):
+    """global_optimization(graph) on `dev`, read whole: one LM solve
+    (posegraph._optimize) and its pruning (an uncertain edge whose final
+    line-process weight is below edge_prune_threshold, 0.25, is dropped).
+    Returns (the nodes, the count of edges kept, each edge's weight)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from recon3d_tpu_torch.registration.posegraph import _optimize, global_optimization
+
+    def put(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    es = graph.edges
+    res = _optimize(put(np.stack(graph.nodes)), put([e.source for e in es], torch.int32),
+                    put([e.target for e in es], torch.int32),
+                    put(np.stack([e.transformation for e in es])),
+                    put(np.stack([e.information for e in es])),
+                    put([e.uncertain for e in es], torch.bool))
+    prune = inspect.signature(global_optimization).parameters["edge_prune_threshold"].default
+    w = res.edge_weights.cpu().numpy()
+    kept = sum(1 for e, wi in zip(es, w) if not (e.uncertain and wi < prune))
+    return list(res.poses.cpu().numpy()), kept, [round(float(wi), 6) for wi in w]
+
+
+def scene_distance(p):
+    """Distance (m) of world points (N, 3) to the synthetic scene: the
+    nearer of the sphere (center (0, 0, 1.2), r 0.3) and the plane z = 1.8."""
+    import torch
+
+    d_sph = ((p - torch.tensor([0.0, 0.0, 1.2], device=p.device)).norm(dim=1) - 0.3).abs()
+    return torch.minimum(d_sph, (p[:, 2] - 1.8).abs())
+
+
+def offline_phase(dev, counted, all_launches):
+    """The offline phase: Scanner3D(SyntheticRGBDCamera(640, 480, 16
+    frames), ScannerConfig()).run(16) on the card (K9 once a frame), its
+    batched pairs against per-pair calls, its nodes and mesh against the
+    truth, its PNG checkpoints replayed by FakeRGBDCamera and re-integrated
+    by integrate_saved_frames (K9 once a frame) against the same _fuse_one
+    loop, the pose graph's kept edges on the card and the host CPU and its
+    line-process weights on the host CPU. The bars are checked after the
+    phase's line."""
+    import numpy as np
+    import torch
+
+    from recon3d_tpu_torch.camera.fake import FakeRGBDCamera, SyntheticRGBDCamera
+    from recon3d_tpu_torch.config import ScannerConfig
+    from recon3d_tpu_torch.pipeline.offline import Scanner3D
+    from recon3d_tpu_torch.pipeline.streaming import StreamingFusion, integrate_saved_frames
+    from recon3d_tpu_torch.registration.icp import information_matrix
+    from recon3d_tpu_torch.registration.ransac import registration_ransac_fpfh
+    from recon3d_tpu_torch.utils import io
+    from recon3d_tpu_torch.utils.types import CameraIntrinsics
+
+    t_phase = time.perf_counter()
+    co = OFFLINE
+    N = co["frames"]
+    out_dir = tempfile.TemporaryDirectory()
+    cfg = ScannerConfig(output_dir=out_dir.name)
+    cam = SyntheticRGBDCamera(co["width"], co["height"], n_frames=N)
+    intr = CameraIntrinsics(cam.fx, cam.fy, cam.cx, cam.cy)
+    sc = Scanner3D(cam, intr, cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    path, launches = counted(lambda: sc.run(n_frames=N), {"K9": N})
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    all_launches["offline"] = launches
+    stages_ms = {k: round(v * 1e3, 3) for k, v in sc.timer.totals.items()}
+    bars = []
+
+    # the batched pairs against per-pair calls on two of them: the first
+    # sequential pair and the first loop pair
+    res, infos = sc.pair_results
+    thr = 1.5 * cfg.registration.voxel_size
+    trials = min(cfg.registration.ransac_max_iterations, 65536)
+    checked = [0, N - 1]
+    same = []
+    for k in checked:
+        i, j = sc.pairs[k]
+        one = registration_ransac_fpfh(sc.clouds[i], sc.clouds[j], sc.feats[i], sc.feats[j],
+                                       thr, num_trials=trials)
+        info = information_matrix(sc.clouds[i], sc.clouds[j], thr, one.transformation)
+        same.append(all(torch.equal(a, b[k]) for a, b in zip(one, res))
+                    and torch.equal(info, infos[k]))
+    bars.append((all(same), f"offline: batched pairs {[sc.pairs[k] for k in checked]} differ "
+                            f"from their per-pair calls: {same}"))
+
+    # the nodes against the truth (world = frame 0's camera)
+    pose0 = cam.true_pose(0)
+    vs_truth = [scene_motion(node, pose0 @ np.linalg.inv(cam.true_pose(k)), pose0)
+                for k, node in enumerate(sc.pose_graph.nodes)]
+    bars.append((len(vs_truth) == N and max(v[0] for v in vs_truth) <= 5e-3
+                 and max(v[1] for v in vs_truth) <= 5e-3,
+                 f"offline: nodes against the truth {vs_truth}"))
+
+    # the mesh against the scene
+    mesh = io.read_ply(path)
+    d = scene_distance(torch.as_tensor(mesh["points"], dtype=torch.float32))
+    mesh_median = float(d.median())
+    bars.append((mesh_median <= cfg.fusion.voxel_size,
+                 f"offline: mesh median {mesh_median} m from the scene"))
+
+    # the pose graph's kept edges, card (Scanner3D's own solve) against host
+    pairs_host = [{"pair": p, "T": res.transformation[k].cpu().double().numpy(),
+                   "info": infos[k].cpu().double().numpy(),
+                   "good": bool(res.is_good(cfg.registration.fitness_min,
+                                            cfg.registration.rmse_max * 5)[k])}
+                  for k, p in enumerate(sc.pairs)]
+    graph_in, _ = chain_graph(pairs_host, N, "cpu", optimize=False)
+    t0 = time.perf_counter()
+    host_nodes, host_edges, host_weights = solve_graph(graph_in, "cpu")
+    host_graph_s = time.perf_counter() - t0
+    edges = {"card": len(sc.pose_graph.edges), "cpu": host_edges, "in": len(graph_in.edges)}
+    node_vs_cpu = max(np.abs(a - b).max() for a, b in zip(sc.pose_graph.nodes, host_nodes))
+
+    # the checkpoints on disk, replayed
+    pngs = (len(glob.glob(os.path.join(out_dir.name, "color_*.png"))),
+            len(glob.glob(os.path.join(out_dir.name, "depth_*.png"))))
+    # the replay's raw depth is the writer's truncation of meters x depth_scale
+    # (within one raw unit, 1 / depth_scale m, of the captured depth)
+    scale = cfg.stream.depth_scale
+    fake = FakeRGBDCamera(out_dir.name, depth_scale=scale)
+    fake.open()
+    replay = [fake.grab_raw() for _ in range(N)]
+    raw_equal = all(np.array_equal(rd, np.clip(d0.astype(np.float64) * scale, 0, 65535)
+                                   .astype(np.uint16)) for (_, rd), (_, d0) in zip(replay, sc.frames))
+    depth_err = max(float(np.abs(rd / scale - d0).max()) for (_, rd), (_, d0) in zip(replay, sc.frames))
+    colors_equal = all(np.array_equal(rc, c0) for (rc, _), (c0, _) in zip(replay, sc.frames))
+    fake.open()
+    first = fake.grab()
+    grab_equal = np.array_equal(first[1], replay[0][1].astype(np.float32) / scale)
+    bars.append((pngs == (N, N) and colors_equal and raw_equal and grab_equal
+                 and fake.grab() is not None and len(fake) == N,
+                 f"offline: PNG pairs {pngs}, colors equal {colors_equal}, raw depth equal "
+                 f"{raw_equal}, grab {grab_equal}"))
+
+    # integrate_saved_frames on the first frames against the same loop
+    R = co["replay_resolution"]
+    n_rep = co["replay_frames"]
+    t0 = time.perf_counter()
+    sf, rep_launches = counted(lambda: integrate_saved_frames(
+        out_dir.name, intr, cfg, resolution=R, max_frames=n_rep, device=dev), {"K9": n_rep})
+    replay_s = time.perf_counter() - t0
+    all_launches["offline_replay"] = rep_launches
+    loop = StreamingFusion(None, intr, cfg, resolution=R, device=dev)
+    for c, dep in io.load_rgbd_frames_batch(out_dir.name, cfg.stream.depth_scale, n_rep):
+        loop._fuse_one(c, dep, cfg.fusion)
+    replay_equal = all(torch.equal(getattr(sf.volume, k), getattr(loop.volume, k))
+                       for k in ("tsdf", "weight", "color", "origin"))
+    bars.append((replay_equal and sf.frames_integrated == n_rep,
+                 "offline: integrate_saved_frames differs from its _fuse_one loop"))
+    emit({"phase": "offline", "frame": [co["height"], co["width"]], "frames": N,
+          "launches": all_launches["offline"], "replay_launches": rep_launches,
+          "run_s": round(run_s, 3), "stages_ms": stages_ms, "peak_mem_bytes": peak,
+          "pairs": [list(p) for p in sc.pairs],
+          "fitness": [round(float(f), 6) for f in res.fitness.cpu()],
+          "rmse": [round(float(r), 7) for r in res.inlier_rmse.cpu()],
+          "good": [p["good"] for p in pairs_host], "batched_equal_pairs": same,
+          "edges": edges, "cpu_edge_weights": host_weights, "node_vs_cpu_max": float(node_vs_cpu),
+          "cpu_pose_graph_s": round(host_graph_s, 3),
+          "vs_truth_center_normal_angle": vs_truth, "mesh_vs_truth_median_m": mesh_median,
+          "mesh_vertices": len(mesh["points"]), "mesh_triangles": len(mesh["triangles"]),
+          "pngs": list(pngs), "replay_depth_err_max_m": depth_err,
+          "replay_frames": n_rep, "replay_resolution": R, "replay_s": round(replay_s, 3),
+          "replay_equal": replay_equal, "phase_s": round(time.perf_counter() - t_phase, 3)})
+    out_dir.cleanup()
+    for ok, what in bars:
+        check(ok, what)
+
+
+def scanner_phase(dev, counted, all_launches):
+    """The scanner phase: StreamingScanner(SyntheticRGBDCamera(640, 480, 10
+    frames), ScannerConfig()) on the card: start(max_frames=10), join, stop,
+    finalize (K7 + K8 in the normals); the accumulate step's host syncs;
+    the Poisson indicator on the finalized oriented cloud twice on the card
+    (bitwise) and on the host CPU; the mesh against the scene. The bars are
+    checked after the phase's line."""
+    import torch
+
+    from recon3d_tpu_torch.camera.fake import SyntheticRGBDCamera
+    from recon3d_tpu_torch.config import MeshConfig, ScannerConfig
+    from recon3d_tpu_torch.mesh import ops as mesh_ops
+    from recon3d_tpu_torch.mesh import poisson
+    from recon3d_tpu_torch.pipeline.scanner import StreamingScanner
+    from recon3d_tpu_torch.utils.types import CameraIntrinsics, compact
+
+    t_phase = time.perf_counter()
+    cs = SCANNER
+    N = cs["frames"]
+    out_dir = tempfile.TemporaryDirectory()
+    cfg = ScannerConfig(output_dir=out_dir.name)
+    cam = SyntheticRGBDCamera(cs["width"], cs["height"], n_frames=N)
+    intr = CameraIntrinsics(cam.fx, cam.fy, cam.cx, cam.cy)
+    sc = StreamingScanner(cam, intr, cfg, device=dev)
+    # the oriented cloud finalize meshes (its capacity decides K7 + K8)
+    oriented = {}
+    estimate = sc.normals.estimate_normals
+
+    def keep(pc):
+        oriented["pc"] = estimate(pc)
+        return oriented["pc"]
+
+    sc.normals.estimate_normals = keep
+
+    def scan():
+        sc.start(max_frames=N)
+        sc._thread.join(timeout=cs["timeout_s"])
+        sc.stop()
+        return sc.finalize(output_prefix=os.path.join(out_dir.name, "scan"))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    (mesh, dens, paths), launches = counted(scan, {"K7": 1, "K8": 1})
+    scan_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    all_launches["scanner"] = launches
+    pc = oriented["pc"]
+    t = sc.timer
+    stages_ms = {k: round(v * 1e3 / max(t.counts[k], 1), 3) for k, v in t.totals.items()}
+    rejected = sc.frames_rejected
+    bars = [(sc.frames == N and int(sc.combined.count()) > 500 and len(paths) == 3
+             and all(os.path.exists(p) for p in paths),
+             f"scanner: frames {sc.frames}, combined {int(sc.combined.count())}, paths {paths}")]
+
+    # the accumulate step's host syncs on one more frame
+    cam.n_frames, cam._i = N + 1, N
+    frame = cam.grab()
+    nxt = sc.capture.capture_point_cloud(frame)
+    nxt = compact(nxt, min(nxt.capacity, cfg.processing.capacity // 4))
+    _, sync_by_line = sync_sites(lambda: sc._accumulate(sc.combined, nxt))
+
+    # Poisson on the oriented cloud: twice on the card, once on the host
+    R = 1 << MeshConfig().poisson_depth
+    pts, _, _ = pc.to_numpy()
+    origin, scale = poisson.grid_placement(pts, R, device=dev)
+
+    def indicator(p):
+        o, s = origin.to(p.points.device), scale.to(p.points.device)
+        return poisson._poisson_indicator(p.points, p.normals, p.valid, R, o, s, 1.5)
+
+    t0 = time.perf_counter()
+    chi_a, dens_a = indicator(pc)
+    torch.cuda.synchronize()
+    indicator_ms = (time.perf_counter() - t0) * 1e3
+    chi_b, dens_b = indicator(pc)
+    host = dataclasses.replace(pc, points=pc.points.cpu(), valid=pc.valid.cpu(),
+                               colors=None if pc.colors is None else pc.colors.cpu(),
+                               normals=pc.normals.cpu())
+    t0 = time.perf_counter()
+    chi_h, dens_h = indicator(host)
+    host_indicator_ms = (time.perf_counter() - t0) * 1e3
+    chi_rerun_equal = torch.equal(chi_a, chi_b) and torch.equal(dens_a, dens_b)
+    chi_max = float(chi_h.abs().max())
+    chi_vs_cpu = float((chi_a.cpu() - chi_h).abs().max())
+    dens_vs_cpu = float(((dens_a.cpu() - dens_h).abs()
+                         - 1e-5 * dens_h.abs()).max() / float(dens_h.abs().max()))
+    bars.append((chi_rerun_equal, "scanner: Poisson chi differs between two card runs"))
+    bars.append((chi_vs_cpu <= 1e-5 * chi_max and dens_vs_cpu <= 1e-6,
+                 f"scanner: Poisson chi {chi_vs_cpu} of {chi_max}, densities {dens_vs_cpu} "
+                 f"against the host"))
+
+    # the mesh against the scene, over the vertices above the density cull
+    keep_v = mesh.vertex_valid & ~mesh_ops.density_mask(dens, MeshConfig().density_quantile)
+    d = scene_distance(mesh.vertices[keep_v])
+    mesh_median = float(d.median())
+    bars.append((mesh_median < float(scale), f"scanner: mesh median {mesh_median} m from the "
+                                             f"scene, a Poisson cell {float(scale)} m"))
+    emit({"phase": "scanner", "frame": [cs["height"], cs["width"]], "frames": sc.frames,
+          "launches": all_launches["scanner"], "scan_s": round(scan_s, 3),
+          "frames_rejected": rejected, "combined_points": int(sc.combined.count()),
+          "processed_points": int(pc.valid.sum()), "processed_capacity": pc.capacity,
+          "stages_ms_per_call": stages_ms, "accumulate_calls": t.counts["accumulate"],
+          "accumulate_host_syncs": sum(sync_by_line.values()),
+          "accumulate_sync_sites": sync_by_line, "peak_mem_bytes": peak,
+          "poisson_depth": MeshConfig().poisson_depth, "poisson_cell_m": float(scale),
+          "indicator_ms": round(indicator_ms, 3), "host_indicator_ms": round(host_indicator_ms, 3),
+          "chi_rerun_equal": chi_rerun_equal, "chi_vs_cpu_max": chi_vs_cpu, "chi_max": chi_max,
+          "dens_vs_cpu_excess": dens_vs_cpu, "mesh_vertices": int(mesh.vertex_valid.sum()),
+          "mesh_kept_vertices": int(keep_v.sum()), "mesh_vs_truth_median_m": mesh_median,
+          "phase_s": round(time.perf_counter() - t_phase, 3)})
+    out_dir.cleanup()
+    for ok, what in bars:
+        check(ok, what)
+
+
 def plain_disparity(gl, gr, m, w, num_directions):
     """compute_disparity's kernel path built from the plain versions (on the
     tensors' device): returns (dense WLS disparity, SGM valid mask)."""
@@ -2412,6 +2751,8 @@ def main():
     calibration_phase(dev, counted, timed_frames, all_launches,
                       dict(raw_l=raw_l, raw_r=raw_r, gl=gl, gr=gr, dt=dt, m=m, w=w,
                            against=against, frame_stats=frame_stats))
+    offline_phase(dev, counted, all_launches)
+    scanner_phase(dev, counted, all_launches)
 
     # ---- kernels against their plain versions, on their paths' inputs
     rows = []
@@ -2754,7 +3095,9 @@ def main():
             bound_ms(nbytes, 0), run_ms(lambda: torch.index_select(sp, 0, pos), KERNEL_RUNS),
             library="torch.index_select of the sorted points at the clamped slot positions: "
                     "the placement without occupancy", grid=[G_, C_],
-            occupied_slots=int(pk_q[:, 3].sum()))
+            occupied_slots=int(pk_q[:, 3].sum()),
+            **({"scanner_launches": all_launches["scanner"]["K7"]} if shape == "scan_post"
+               else {}))
         del pos, slot
         moments_path = "moments_1m" if shape == "normals_1m" else "scan_post_moments"
         for variant, fused, path in (("moments", False, moments_path), ("fused", True, shape)):
@@ -2772,7 +3115,9 @@ def main():
                 cuda_ms(lambda: grid_knn.core_plain(pk_q, r2, G_, C_, fused), PLAIN_RUNS),
                 bound_ms(nbytes, k8_operations(pk_q, cnt, G_, C_, fused), F32_INSTR_PER_S),
                 None, library="none: no single PyTorch call computes it", grid=[G_, C_],
-                tile=list(grid_knn_cuda.k8_tile(G_, C_)), bitwise=True)
+                tile=list(grid_knn_cuda.k8_tile(G_, C_)), bitwise=True,
+                **({"scanner_launches": all_launches["scanner"]["K8"]}
+                   if (shape, fused) == ("scan_post", True) else {}))
             del out_k, out_q, cnt
         del sp, start, pk_q
 
@@ -2796,7 +3141,9 @@ def main():
         bound_ms(nbytes, 0), run_ms(lambda: imgs[:, vcl, ucl], KERNEL_RUNS),
         library="advanced-index gather imgs[:, vc, uc] (the plain version itself)",
         shape=[*imgs.shape, fcfg.grid_resolution],
-        streaming_launches=all_launches["streaming"]["K9"])
+        streaming_launches=all_launches["streaming"]["K9"],
+        offline_launches=all_launches["offline"]["K9"],
+        offline_replay_launches=all_launches["offline_replay"]["K9"])
     del vc, uc, vcl, ucl, imgs, s_k, s_q, vol_k
 
     emit({"kernels": rows})

@@ -96,8 +96,10 @@ def inv_rodrigues(R: torch.Tensor) -> torch.Tensor:
     return torch.where(theta < 1e-12, v / 2.0, axis * theta)
 
 
-def tilt_matrix(tau_x, tau_y, dtype=torch.float32) -> torch.Tensor:
-    """OpenCV sensor-tilt projection matrix (computeTiltProjectionMatrix)."""
+def tilt_matrix(tau_x, tau_y, dtype=torch.float64) -> torch.Tensor:
+    """OpenCV sensor-tilt projection matrix (computeTiltProjectionMatrix),
+    float64 unless `dtype` says otherwise (the JAX package's default under
+    the 64-bit mode its calibration runs in)."""
     tau_x = torch.as_tensor(tau_x, dtype=dtype)
     tau_y = torch.as_tensor(tau_y, dtype=dtype)
     cx, sx = torch.cos(tau_x), torch.sin(tau_x)

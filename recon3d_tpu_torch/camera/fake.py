@@ -1,19 +1,144 @@
-"""Synthetic cameras (numpy copy of recon3d_tpu/camera/fake.py:
-`_render_sphere_plane`, `SyntheticRGBDCamera`, `FakeStereoCamera.render`).
+"""Replay and synthetic cameras (host-side copy of
+recon3d_tpu/camera/fake.py: numpy and threads, no device code).
 
-The scene is an analytic sphere over a textured plane, so the depth path has
-a ground-truth disparity d = f * b / z and the point-cloud path known
-surfaces (the plane z = 1.8, the sphere at (0, 0, 1.2), r = 0.3). Pure
-numpy: the copy exists so the port builds its scenes without importing the
-JAX package.
+  FakeRGBDCamera      replays a directory of color_*.png / depth_*.png
+                      pairs (a scan's checkpoints) through the native PNG
+                      codec of utils/native.py;
+  SyntheticRGBDCamera renders an analytic scene (sphere over a textured
+                      plane) from a moving camera with known poses;
+  FakeStereoCamera    renders rectified left / right views of the same
+                      scene with a ground-truth disparity d = f * b / z.
+
+The scene's surfaces are known (the plane z = 1.8, the sphere at
+(0, 0, 1.2), r = 0.3). The cameras yield numpy frames; the pipelines move
+them to the device.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import glob
+import os
+import re
+import threading
+import time
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from recon3d_tpu_torch.camera.base import Camera
+
+
+class FakeRGBDCamera(Camera):
+    """Replay color / depth PNG pairs from a directory (mini1.py:188-212).
+
+    A color frame without its depth file is skipped. With prefetch=True (the
+    default) a background thread decodes the directory ahead of the consumer
+    through the native thread-pool loader, so grab() does not pay a serial
+    PNG decode; the decoded frames stay cached, so a looped replay
+    (loop=True) serves from memory. A decode error is raised to the caller
+    of grab() / wait_prefetched().
+    """
+
+    def __init__(self, directory: str, depth_scale: float = 1000.0,
+                 loop: bool = False, prefetch: bool = True):
+        self.directory = directory
+        self.depth_scale = depth_scale
+        self.loop = loop
+        self.prefetch = prefetch
+        self._pairs: List[Tuple[str, str]] = []
+        self._i = 0
+        self._cache: Optional[List] = None
+        self._cv = threading.Condition()
+        self._decode_error: Optional[BaseException] = None
+
+    def open(self) -> None:
+        colors = sorted(glob.glob(os.path.join(self.directory, "color_*.png")))
+        self._pairs = []
+        for c in colors:
+            m = re.search(r"color_(\d+)\.png$", c)
+            d = os.path.join(self.directory, f"depth_{m.group(1)}.png")
+            if os.path.exists(d):
+                self._pairs.append((c, d))
+        if not self._pairs:
+            raise FileNotFoundError(f"no color/depth pairs in {self.directory}")
+        self._i = 0
+        if self.prefetch and self._cache is None:
+            self._cache = [None] * len(self._pairs)
+            threading.Thread(target=self._decode_ahead, daemon=True).start()
+
+    def wait_prefetched(self, timeout: float = 300.0) -> bool:
+        """Block until the background decoder has cached every frame; False
+        after `timeout` seconds. A decode error is raised here."""
+        if self._cache is None:
+            return True
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while any(f is None for f in self._cache):
+                if self._decode_error is not None:
+                    raise self._decode_error
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cv.wait(timeout=min(left, 5.0))
+        return True
+
+    def _decode_ahead(self, chunk: int = 16) -> None:
+        """Fill the frame cache: frame 0 alone, then chunks through the
+        native batch loader. The cache holds the sensor's types (color u8,
+        depth u16 raw units); grab() converts the depth to float32 meters."""
+        from recon3d_tpu_torch.utils import io, native
+
+        try:
+            c0 = io.read_color(self._pairs[0][0])
+            d0 = io.read_depth_raw(self._pairs[0][1])
+            with self._cv:
+                self._cache[0] = (c0, d0)
+                self._cv.notify_all()
+            h, w = c0.shape[:2]
+            n = len(self._pairs)
+            for s in range(1, n, chunk):
+                sub = self._pairs[s:s + chunk]
+                colors, depths = native.load_rgbd_batch([p[0] for p in sub],
+                                                        [p[1] for p in sub], w, h)
+                with self._cv:
+                    for k in range(len(sub)):
+                        self._cache[s + k] = (colors[k], depths[k])
+                    self._cv.notify_all()
+        except BaseException as e:  # surface decode failures to grab()
+            with self._cv:
+                self._decode_error = e
+                self._cv.notify_all()
+
+    def __len__(self) -> int:
+        return len(self._pairs)
+
+    def grab_raw(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """(color u8, depth u16 raw units): the sensor's wire format, which
+        the streaming producer ships to the device (the step divides by
+        depth_scale there)."""
+        from recon3d_tpu_torch.utils import io
+
+        if self._i >= len(self._pairs):
+            if not self.loop:
+                return None
+            self._i = 0
+        idx = self._i
+        self._i += 1
+        if self._cache is not None:
+            with self._cv:
+                while self._cache[idx] is None and self._decode_error is None:
+                    self._cv.wait(timeout=30.0)
+                if self._cache[idx] is not None:
+                    return self._cache[idx]
+                raise self._decode_error
+        c, d = self._pairs[idx]
+        return io.read_color(c), io.read_depth_raw(d)
+
+    def grab(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        raw = self.grab_raw()
+        if raw is None:
+            return None
+        c, d = raw
+        return c, d.astype(np.float32) / self.depth_scale
 
 
 def _render_sphere_plane(fx, fy, cx, cy, h, w, pose):
@@ -101,16 +226,21 @@ class SyntheticRGBDCamera(Camera):
         return _render_sphere_plane(self.fx, self.fy, self.cx, self.cy, self.h, self.w, pose)
 
 
-class FakeStereoCamera:
+class FakeStereoCamera(Camera):
     """Synthetic rectified stereo pair generator: `render(k)` gives a
     (left, right) uint8 gray pair, the left-view ground-truth disparity and
-    the left depth."""
+    the left depth; `grab()` yields render(k)'s pair for k < n_frames, then
+    None."""
 
     def __init__(self, width=640, height=480, focal=525.0, baseline=0.06, n_frames=4):
         self.w, self.h = width, height
         self.f = focal
         self.b = baseline
         self.n_frames = n_frames
+        self._i = 0
+
+    def open(self) -> None:
+        self._i = 0
 
     def render(self, k: int):
         cx, cy = self.w / 2 - 0.5, self.h / 2 - 0.5
@@ -124,3 +254,10 @@ class FakeStereoCamera:
         grayR = colR.astype(np.float32).mean(-1).astype(np.uint8)
         disp = np.where(depL > 0, self.f * self.b / np.maximum(depL, 1e-6), 0.0)
         return grayL, grayR, disp.astype(np.float32), depL
+
+    def grab(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        if self._i >= self.n_frames:
+            return None
+        gl, gr, _, _ = self.render(self._i)
+        self._i += 1
+        return gl, gr

@@ -5,18 +5,20 @@ point-cloud processing, fusion and meshing configuration (passed as
 ``dataclasses.asdict`` dicts of the JAX package's configs), the 4x4
 reprojection matrix Q, optionally the pinhole intrinsics as a 3x3 K, the
 stereo calibration (`stereo_params`), the two-pass warp plans
-(`remap_plan`), point clouds (`point_cloud`), TSDF volumes (`tsdf_volume`),
-triangle meshes (`triangle_mesh`), RGB-D frames (`rgbd_image`), pinhole
-intrinsics (`camera_intrinsics`), pose graphs (`pose_graph`) and the
-calibration stages' results (`calibration_result`,
-`stereo_calibration_result`, `rectify_result`); all arrive as plain Python
-/ numpy. The JAX backends map onto the port's: 'pallas' ->
+(`remap_plan`), point clouds (`point_cloud`; with a leading batch axis,
+`point_clouds`), TSDF volumes (`tsdf_volume`), triangle meshes
+(`triangle_mesh`; Poisson's with its densities, `poisson_mesh`), RGB-D
+frames (`rgbd_image`), pinhole intrinsics (`camera_intrinsics`), pose graphs
+(`pose_graph`), registration results (`registration_result`), the scanners'
+nested configuration (`scanner_config`) and the calibration stages' results
+(`calibration_result`, `stereo_calibration_result`, `rectify_result`); all
+arrive as plain Python / numpy. The JAX backends map onto the port's: 'pallas' ->
 'cuda', 'xla' -> 'torch'.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -25,9 +27,11 @@ from recon3d_tpu_torch.calib.mono import CalibrationResult
 from recon3d_tpu_torch.calib.npz import StereoParams
 from recon3d_tpu_torch.calib.stereo import RectifyResult, StereoCalibrationResult
 from recon3d_tpu_torch.config import (FusionConfig, MeshConfig, ProcessingConfig,
-                                      StereoMatcherConfig, WLSConfig)
+                                      RegistrationConfig, ScannerConfig, StereoMatcherConfig,
+                                      StreamConfig, WLSConfig)
 from recon3d_tpu_torch.fusion.tsdf import TSDFVolume
 from recon3d_tpu_torch.ops.warp import RemapPlan
+from recon3d_tpu_torch.registration.icp import RegistrationResult
 from recon3d_tpu_torch.registration.posegraph import PoseGraph
 from recon3d_tpu_torch.utils.types import CameraIntrinsics, PointCloud, RGBDImage, TriangleMesh
 
@@ -99,6 +103,36 @@ def point_cloud(arrays: dict, device="cuda") -> PointCloud:
                       colors=put("colors", np.float32), normals=put("normals", np.float32))
 
 
+def point_clouds(arrays: dict, device="cuda") -> List[PointCloud]:
+    """The port's clouds from a JAX PointCloud whose fields carry a leading
+    batch axis (B, N, ...), as numpy arrays: one cloud a batch row."""
+    return [point_cloud({k: None if v is None else np.asarray(v)[b] for k, v in arrays.items()},
+                        device)
+            for b in range(np.asarray(arrays["points"]).shape[0])]
+
+
+def registration_result(fields: dict, device="cuda") -> RegistrationResult:
+    """The port's RegistrationResult from the JAX one's ``_asdict()`` with
+    numpy arrays (batched or not): float32 transforms, fitness and rmse,
+    int64 iterations."""
+    f32 = {k: torch.as_tensor(np.array(fields[k], np.float32), device=device)
+           for k in ("transformation", "fitness", "inlier_rmse")}
+    return RegistrationResult(**f32, iterations=torch.as_tensor(
+        np.array(fields["iterations"], np.int64), device=device))
+
+
+def scanner_config(fields: dict) -> ScannerConfig:
+    """The port's ScannerConfig from ``dataclasses.asdict`` of the JAX one
+    (each nested config a dict; the matcher's backend mapped)."""
+    f = dict(fields)
+    f["matcher"] = matcher_config(f["matcher"])
+    for k, cls in (("stream", StreamConfig), ("wls", WLSConfig), ("processing", ProcessingConfig),
+                   ("registration", RegistrationConfig), ("fusion", FusionConfig),
+                   ("mesh", MeshConfig)):
+        f[k] = cls(**f[k])
+    return ScannerConfig(**f)
+
+
 def fusion_config(fields: dict) -> FusionConfig:
     return FusionConfig(**fields)
 
@@ -128,6 +162,13 @@ def triangle_mesh(arrays: dict, device="cuda") -> TriangleMesh:
                         triangle_valid=_put(arrays, "triangle_valid", bool, device),
                         vertex_colors=_put(arrays, "vertex_colors", np.float32, device),
                         vertex_normals=_put(arrays, "vertex_normals", np.float32, device))
+
+
+def poisson_mesh(mesh_arrays: dict, densities, device="cuda"):
+    """(TriangleMesh, float32 densities) of the port from the JAX Poisson
+    result: the mesh's fields and the per-vertex densities as numpy."""
+    return (triangle_mesh(mesh_arrays, device),
+            torch.as_tensor(np.array(densities, np.float32), device=device))
 
 
 def rgbd_image(color, depth, device="cuda") -> RGBDImage:

@@ -17,8 +17,8 @@ in place. The capture thread uploads each queue item from a fresh pinned
 host buffer on its own stream and hands the fusion thread a CUDA event to
 wait on, so the copy overlaps the fusion of earlier frames.
 
-`integrate_saved_frames` (the offline re-integration of a saved scan) is
-not ported yet: it needs the PNG readers of utils/io.py.
+`integrate_saved_frames` re-integrates a saved scan: the same consumer on
+the PNG frames of a directory, synchronously.
 """
 from __future__ import annotations
 
@@ -579,3 +579,29 @@ class StreamingFusion:
                                                             device=self.device)
                                             for name in _TrackState._fields))
         return self
+
+
+def integrate_saved_frames(directory: str, intrinsics: CameraIntrinsics,
+                           config: ScannerConfig = ScannerConfig(),
+                           resolution: int = 256, volume_origin=None,
+                           max_frames: Optional[int] = None,
+                           tracking: str = "keyframe",
+                           depth_filters=None, device="cuda") -> StreamingFusion:
+    """Offline re-integration of a saved scan (check90.py:408-463
+    integrate_saved_frames): load every color / depth pair of `directory`
+    (the native thread-pool decoder), run the live stream's odometry + TSDF
+    consumer on each, synchronously with no threads, and return the fusion
+    object (volume, trajectory, extract_mesh())."""
+    from recon3d_tpu_torch.utils import io as _io
+
+    frames = _io.load_rgbd_frames_batch(directory, depth_scale=config.stream.depth_scale,
+                                        max_frames=max_frames)
+    if not frames:
+        raise FileNotFoundError(f"no color/depth pairs in {directory}")
+    sf = StreamingFusion(None, intrinsics, config, resolution=resolution,
+                         volume_origin=volume_origin, tracking=tracking,
+                         depth_filters=depth_filters, device=device)
+    cfg = config.fusion
+    for color, depth in frames:
+        sf._fuse_one(color, depth, cfg)
+    return sf

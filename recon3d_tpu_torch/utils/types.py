@@ -177,8 +177,27 @@ class CameraIntrinsics:
     cx: float
     cy: float
 
+    def matrix(self, device="cuda") -> torch.Tensor:
+        """The (3, 3) float32 pinhole matrix K on `device`."""
+        K = np.zeros((3, 3), np.float32)
+        K[0, 0], K[1, 1], K[0, 2], K[1, 2], K[2, 2] = self.fx, self.fy, self.cx, self.cy, 1.0
+        return torch.as_tensor(K, device=device)
+
     @staticmethod
     def from_matrix(K) -> "CameraIntrinsics":
         K = torch.as_tensor(K, dtype=torch.float32).cpu()
         return CameraIntrinsics(fx=float(K[0, 0]), fy=float(K[1, 1]),
                                 cx=float(K[0, 2]), cy=float(K[1, 2]))
+
+    @staticmethod
+    def from_json(path: str) -> "CameraIntrinsics":
+        """Read fx, fy and the principal point (RealSense's ppx / ppy, else
+        cx / cy) from a JSON file (camera_intrinsic.json), each rounded to
+        float32 as the JAX package holds them."""
+        import json
+
+        with open(path) as f:
+            d = json.load(f)
+        cx = d["ppx"] if "ppx" in d else d["cx"]
+        cy = d["ppy"] if "ppy" in d else d["cy"]
+        return CameraIntrinsics(*(float(np.float32(v)) for v in (d["fx"], d["fy"], cx, cy)))
