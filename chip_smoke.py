@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Drive recon3d_tpu_torch's depth, point-cloud, fusion, registration,
-streaming, calibration and scanner paths on one NVIDIA H100 and hold every
-kernel on them to its plain PyTorch version.
+streaming, calibration and scanner paths, its CLI, the sharded fusion, the
+scalable TSDF and the viewers on one NVIDIA H100 and hold every kernel on
+them to its plain PyTorch version.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 The frames are the bench scene at full size: the synthetic sphere-over-plane
-pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
+pair at 1920x1080, D = 128, block 5. Phases, one JSON line each (with t_s,
+the seconds since the script started):
   device      card name, nvidia-smi name / power limit, CUDA of torch, nvcc;
   build       seconds to build the kernels (cold when build/kernels/ is empty);
   slice       the rectified pair through compute_disparity (tuned SGM-4,
@@ -76,9 +78,9 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               trials, point-to-plane refine) and information_matrix; the
               pose graph's LM. ms of a frame's preprocess, a pair and the
               pose graph, each pair's fitness / rmse, the pose error
-              against true_pose(k), and the chain of the first 4 frames on
-              the card against the same on the host CPU (the same CPU-drawn
-              RANSAC trials), and each 4-frame graph's edges' final
+              against true_pose(k), and the chain of the first cpu_frames
+              frames on the card against the same on the host CPU (the same
+              CPU-drawn RANSAC trials), and each such graph's edges' final
               line-process weights (pruned below 0.25), card and host;
   odometry    compute_rgbd_odometry on frames 0 -> 1 (3 levels, 10 sweeps
               each, gathers): median ms of 10, the busy share, the error
@@ -90,19 +92,19 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               rmse and the host's run. TF32 must be off;
   streaming   StreamingFusion at ScannerConfig()'s defaults (256^3, voxel
               0.004, color, keyframe tracking, consume_batch "auto", queue
-              10, the live mesher, an auto-fit origin) on 30
+              10, the live mesher, an auto-fit origin) on 16
               SyntheticRGBDCamera(640, 480) frames (step 0.01): warmup, the
-              threaded stream (start(max_frames=30), stop(): fps, every
+              threaded stream (start(max_frames=16), stop(): fps, every
               captured frame integrated, no odometry or host failure, K9
               once a frame), the same frames through _fuse_one (ms a frame,
-              the last 5 under torch.profiler for the busy share, peak
-              memory after frame 5 and 30, extract_mesh_live after frame 1
-              and 30), each frame's drift from inv(true_pose(k)) (frames
+              the last under torch.profiler for the busy share, peak
+              memory after frame 5 and 16, extract_mesh_live after frame 1
+              and 16), each frame's drift from inv(true_pose(k)) (frames
               1-3 within 1 cm), extract_mesh() against the scene, the live
               mesh against extract_triangle_mesh (equal vertex-key and face
               sets, vertices within 1e-6), then bitwise against the
               _fuse_one run: the stream, K9's plain version, a checkpoint
-              at frame 15 resumed with the rest as one backlog through
+              at frame 8 resumed with the rest as one backlog through
               _fuse_frames (its stages timed, profile=True); the host
               syncs a step makes
               (torch.cuda's sync debug mode, by line); the host CPU's first
@@ -123,21 +125,21 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               the result through DepthPipeline.from_npz, one counted frame
               of the bench's raw pair against its plain version, fps, the
               maps against the true rig's; census_cost_volume on the
-              rectified pair and census SGM on its rows 270-810, card
+              rectified pair and census SGM on its rows 405-675, card
               against host, and its RMSE against the analytic disparity;
-  offline     Scanner3D(SyntheticRGBDCamera(640, 480, 16 frames),
-              ScannerConfig()).run(16): capture + PNG checkpoints, 16
-              preprocessed clouds, 15 sequential and 3 loop pairs through
-              register_pairs_ransac_batched, the pose graph, 16 integrates
+  offline     Scanner3D(SyntheticRGBDCamera(640, 480, 8 frames),
+              ScannerConfig()).run(8): capture + PNG checkpoints, 8
+              preprocessed clouds, 7 sequential and 3 loop pairs through
+              register_pairs_ransac_batched, the pose graph, 8 integrates
               (K9 once each, no other kernel), extract, PLY; ms a stage and
               peak memory. Bars: two pairs (the first sequential, the first
               loop) bitwise their per-pair registration_ransac_fpfh +
               information_matrix; every node's sphere center within 5 mm and
               plane normal within 5e-3 of the truth; the mesh's median
-              distance to the scene under a voxel (0.004 m); 16 PNG pairs
+              distance to the scene under a voxel (0.004 m); 8 PNG pairs
               replayed by FakeRGBDCamera (colors equal, the raw depth the
               writer's truncation, within 1 / depth_scale);
-              integrate_saved_frames on the first 8 (K9 8) bitwise the same
+              integrate_saved_frames on the first 4 (K9 4) bitwise the same
               _fuse_one loop. It also gives the pose graph's kept edges on
               the card and the host CPU, and its weights on the host CPU;
   scanner     StreamingScanner(SyntheticRGBDCamera(640, 480, 10 frames),
@@ -153,6 +155,32 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               the maximum); the mesh's median distance to the scene, over
               the vertices above MeshConfig().density_quantile, under one
               Poisson cell;
+  cli         recon3d_tpu_torch.cli.main in this process: depth at the
+              CLI's defaults (960x540, 3 frames) on an NPZ of pipeline_rig()
+              scaled to it (frame 0's PNG bitwise DepthPipeline.process on
+              the same pair and rig), fuse at ScannerConfig() (3 frames)
+              with --checkpoint and --resume (2 more), scan (3 frames) and
+              offline (4 frames) at ScannerConfig(), inspect, doctor; each
+              command's seconds and launches; the PLYs load;
+  parallel_fusion  parallel/fusion.py on 4 in-process frame shards: 4 of
+              the fusion phase's frames into 256^3 by integrate_frames_exact
+              (K9 twice a frame) against 4 integrate calls (weights exact,
+              tsdf and color within 1e-5) and bitwise its plain-K9 call,
+              its peak over the bytes live before it;
+              fused_frames_sharded of frames 1-4 against frame 0 against the
+              same odometry + integrate chain frame by frame;
+  scalable    fusion/scalable.py at make_scalable_volume()'s defaults on the
+              fusion phase's 30 frames with maybe_grow between frames:
+              ms a frame, bricks, grows, drops, one frame's host syncs by
+              line; the extracted mesh against
+              the scene; save at frame 15 / load / continue bitwise one run;
+              the first 2 frames on the host CPU against the card;
+  viewers     render_points of the scanner phase's cloud at 960x720 (ms,
+              bitwise the host's render); LiveDepthViewer with a sink over
+              DepthPipeline at 1920x1080, 3 frames; live_remesh_loop on a
+              2-frame StreamingScanner with a remesh after each frame (K7 +
+              K8 each, their normals bitwise the plain versions on the
+              remesh's cloud);
   kernels     each kernel against its plain version on its path's own
               inputs (bitwise: K2 on the rectified and the warped pair, with
               and without the downward path; K6 on both axes; K8 both
@@ -174,7 +202,9 @@ pair at 1920x1080, D = 128, block 5. Phases, one JSON line each:
               streaming, offline and replay paths (`streaming_launches`,
               `offline_launches`, `offline_replay_launches`), K7's and the
               fused K8's scan_post rows theirs on the scanner path
-              (`scanner_launches`).
+              (`scanner_launches`); every row its kernel's launches on the
+              cli, parallel_fusion and viewers paths (`path_launches`). A
+              plain version slower than 100 ms is timed once.
 Each path runs once with every launch counter at 0 before it, and the
 counts it leaves must be the path's kernels exactly. The frames record fps
 (median of 10 frames after 2 warm-ups), peak memory (a single-device frame
@@ -205,11 +235,12 @@ DEVICE = "cuda"  # the card; a rehearsal of the script on the CPU sets "cpu"
 H, W, D = 1080, 1920, 128
 FOCAL, BASELINE = 1050.0, 0.06
 KERNEL_RUNS, PLAIN_RUNS, FRAMES, WARMUP = 10, 3, 10, 2
+PLAIN_SLOW_MS = 100.0  # a plain version slower than this is timed once, not PLAIN_RUNS times
 PROFILE_FRAMES = 3  # headline frames under torch.profiler
 ROW_SHARDS, BATCH = 4, 4  # the row mesh of one frame; the frames of the batched phase
 # the point-cloud phases: scanner.py:179-180's chain on a 640x480 frame and
 # tools/bench_pointops.py's cases (bench.py:698-729, 952-976)
-SCAN_W, SCAN_H, SCAN_RUNS = 640, 480, 5
+SCAN_W, SCAN_H, SCAN_RUNS = 640, 480, 1  # timed runs of the chain (~7.2 s each on an H100)
 NORMALS_1M = dict(n=1_000_000, radius=0.02, grid_size=52, cell_capacity=16, runs=5)
 NORMALS_10M = dict(n=10_000_000, radius=0.008, grid_size=128, cell_capacity=16, runs=3)
 VOXEL_10M = dict(n=10_000_000, voxel_size=0.05, capacity=1 << 14, runs=3)
@@ -231,13 +262,14 @@ SPIN_CYCLES_PER_MS = 1.98e6  # torch.cuda._sleep's cycles a millisecond at 1.98 
 # frames (pipeline/offline.py:533-613 at ScannerConfig()'s defaults), the
 # streaming path's odometry and the alignment shim on frames 0 -> 1
 REGISTRATION = dict(width=640, height=480, frames=8, capacity=8192, odometry_runs=10,
-                    icp_runs=3, cpu_frames=4)
+                    icp_runs=3, cpu_frames=2)
 # the streaming phase: StreamingFusion at ScannerConfig()'s defaults on the
-# fusion phase's scene (30 capture frames, step 0.01); the last frames of the
-# _fuse_one loop run under torch.profiler, the first ones on the host CPU
-# (its host CPU frames cut from 5 to 3 when the calibration phase came in)
-STREAMING = dict(width=640, height=480, frames=30, step=0.01, queue_size=10, profile_frames=5,
-                 cpu_frames=3, stream_timeout_s=300, peak_slack_bytes=1 << 20)
+# fusion phase's scene (capture frames, step 0.01); the last frames of the
+# _fuse_one loop run under torch.profiler, the first ones on the host CPU;
+# its frames (30 -> 16), profiled frames (5 -> 3 -> 1), host CPU frames (5 ->
+# 3 -> 2) and filter frames (30 -> 10) cut to make room for later phases
+STREAMING = dict(width=640, height=480, frames=16, step=0.01, queue_size=10, profile_frames=1,
+                 cpu_frames=2, filter_frames=10, stream_timeout_s=300, peak_slack_bytes=1 << 20)
 # the calibration phase: 15 stereo pairs of the reference's 9x6 board
 # (calib/api.py's pattern_size), square 0.04 m, rendered at the depth path's
 # size through pipeline_rig()'s cameras; the initial corners are the true
@@ -245,22 +277,40 @@ STREAMING = dict(width=640, height=480, frames=30, step=0.01, queue_size=10, pro
 # detection, which neither package has without cv2)
 CALIBRATION = dict(pairs=15, pattern=(9, 6), square=0.04, z=(0.6, 1.2), tilt=0.45, roll=0.12,
                    margin_px=40, jitter_px=0.75, supersample=4, lens_blur=(7, 1.0),
-                   host_refine_pairs=2, seed=11, census_rows=(270, 810),
+                   host_refine_pairs=2, seed=11, census_rows=(405, 675),
                    # the rectification maps from the calibrated rig against the
                    # true rig's: 1.5 x the JAX package's median on these renders
                    # and corners (1.6943 px, measured on the host CPU)
                    maps_median_px=1.5 * 1.6943)
 
-# the offline phase: Scanner3D.run at ScannerConfig()'s defaults on 16
-# capture frames (run()'s default count), its PNG checkpoints re-integrated
-# by integrate_saved_frames on the first 8 into a 256^3 volume
-OFFLINE = dict(width=640, height=480, frames=16, replay_frames=8, replay_resolution=256)
+# the offline phase: Scanner3D.run at ScannerConfig()'s defaults on 8
+# capture frames (run()'s default count 16, cut to 8 to make room for later
+# phases), its PNG checkpoints re-integrated by integrate_saved_frames on the
+# first 4 (8 before the cut) into a 256^3 volume
+OFFLINE = dict(width=640, height=480, frames=8, replay_frames=4, replay_resolution=256)
 # the scanner phase: StreamingScanner at ScannerConfig()'s defaults on 10
 # capture frames (the JAX test's flow at full width)
 SCANNER = dict(width=640, height=480, frames=10, timeout_s=300)
+# the cli phase: the CLI's commands in this process; depth at its defaults
+# (960x540), the scanners' commands at ScannerConfig() on a few frames (their
+# full runs are the scanner and offline phases)
+CLI = dict(depth_size=(960, 540), depth_frames=3, fuse_frames=3, resume_frames=2,
+           scan_frames=3, offline_frames=4)
+# the parallel_fusion phase: 4 of the fusion phase's frames, 4 frame shards
+PARALLEL_FUSION = dict(frames=4, shards=4)
+# the scalable phase: the fusion phase's 30 frames into the default brick pool
+SCALABLE = dict(save_at=15, host_frames=2, window=256)
+# the viewers phase: the renderer at LiveVisualizer3D's default size
+VIEWERS = dict(render_size=(720, 960), depth_frames=3, scan_width=640, scan_height=480,
+               timeout_s=300)
+
+
+T_START = time.perf_counter()  # the script's start: each phase line's t_s counts from it
 
 
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -353,8 +403,9 @@ def rodrigues(rvec):
     return np.eye(3) + np.sin(theta) * K + (1.0 - np.cos(theta)) * (K @ K)
 
 
-def pipeline_rig():
-    """An in-memory rectified rig at the bench's size: radial and tangential
+def pipeline_rig(scale=1.0):
+    """An in-memory rectified rig at the bench's size (times `scale`: the
+    focal lengths, principal points and image size): radial and tangential
     distortion, small rectifying rotations, baseline 0.06."""
     import numpy as np
 
@@ -371,6 +422,9 @@ def pipeline_rig():
     Q = np.zeros((4, 4))
     Q[0, 0] = Q[1, 1] = 1.0
     Q[0, 3], Q[1, 3], Q[2, 3], Q[3, 2] = -W / 2, -H / 2, f, 1.0 / BASELINE
+    S = np.diag([scale, scale, 1.0])
+    K1, K2, P1, P2 = S @ K1, S @ K2, S @ P1, S @ P2
+    Q[:3, 3] *= scale
     return StereoParams(mtx1=K1, dist1=d1, mtx2=K2, dist2=d2, R=rodrigues([0.002, -0.004, 0.001]),
                         T=np.array([[-BASELINE], [0.0], [0.0]]),
                         R1=rodrigues([0.001, -0.002, 0.0008]),
@@ -392,6 +446,15 @@ def cuda_ms(fn, runs, setup=lambda: ()):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def plain_ms(fn, setup=lambda: ()):
+    """A plain version's time: one call when it takes more than
+    PLAIN_SLOW_MS, else the median over PLAIN_RUNS calls."""
+    first = cuda_ms(fn, 1, setup)
+    if first > PLAIN_SLOW_MS:
+        return first
+    return statistics.median([first] + [cuda_ms(fn, 1, setup) for _ in range(PLAIN_RUNS - 1)])
 
 
 def _spin(ms):
@@ -736,7 +799,7 @@ def registration_phases(dev, counted, timed_frames, all_launches):
     check(all(p in by_pair for p in chain_pairs(n_cpu)),
           "registration: the host's pairs are not pairs of the card's run")
     card_pairs = [by_pair[p] for p in chain_pairs(n_cpu)]
-    # each 4-frame graph solved once, its nodes, kept edges and weights read
+    # each cpu_frames graph solved once, its nodes, kept edges and weights read
     card_nodes, card_edges, card_weights = solve_graph(
         chain_graph(card_pairs, n_cpu, dev, optimize=False)[0], dev)
     cpu_nodes, cpu_edges, cpu_weights = solve_graph(host["graph_in"], "cpu")
@@ -823,7 +886,7 @@ def registration_phases(dev, counted, timed_frames, all_launches):
           "edges": len(reg_graph.edges), "card_edges_cpu_frames": card_edges,
           "cpu_edges": cpu_edges,
           # the pruning's input: each edge's final line-process weight (pruned
-          # below 0.25), the card's and the host's graphs on the same 4 frames
+          # below 0.25), the card's and the host's graphs on the same frames
           "edge_weights_card_cpu_frames": card_weights, "cpu_edge_weights": cpu_weights,
           "card_good_cpu_frames": [r["good"] for r in card_pairs],
           "pose_err_max": float(max(np.abs(a - b).max() for a, b in zip(nodes, truth))),
@@ -1204,10 +1267,10 @@ def streaming_phase(dev, counted, all_launches):
     del host
     part("cpu")
 
-    # ---- (g) DepthFilterBank() at its defaults on the N depth frames
+    # ---- (g) DepthFilterBank() at its defaults on the first depth frames
     bank = DepthFilterBank()
     filt_ms = []
-    for _, d in dev_frames:
+    for _, d in dev_frames[:cs["filter_frames"]]:
         t0 = time.perf_counter()
         filtered = bank(d)
         torch.cuda.synchronize(dev)
@@ -1713,8 +1776,8 @@ def scene_distance(p):
 
 
 def offline_phase(dev, counted, all_launches):
-    """The offline phase: Scanner3D(SyntheticRGBDCamera(640, 480, 16
-    frames), ScannerConfig()).run(16) on the card (K9 once a frame), its
+    """The offline phase: Scanner3D(SyntheticRGBDCamera(640, 480, N
+    frames), ScannerConfig()).run(N) on the card (K9 once a frame), its
     batched pairs against per-pair calls, its nodes and mesh against the
     truth, its PNG checkpoints replayed by FakeRGBDCamera and re-integrated
     by integrate_saved_frames (K9 once a frame) against the same _fuse_one
@@ -1963,6 +2026,482 @@ def scanner_phase(dev, counted, all_launches):
           "mesh_kept_vertices": int(keep_v.sum()), "mesh_vs_truth_median_m": mesh_median,
           "phase_s": round(time.perf_counter() - t_phase, 3)})
     out_dir.cleanup()
+    for ok, what in bars:
+        check(ok, what)
+    return pc
+
+
+def cli_phase(dev, counted, all_launches):
+    """The cli phase: recon3d_tpu_torch.cli.main in this process, on the
+    card: depth at the CLI's defaults (960x540, 3 frames) on an NPZ of
+    pipeline_rig() scaled to them (K1 x 2, K2, K3, K4, K6 x 6 a frame; the
+    first frame's PNG bitwise DepthPipeline.from_npz(...).process on the
+    same pair and rig), fuse at ScannerConfig() (K9 a frame) with
+    --checkpoint, then --resume for more frames, scan (K7 1 and K8 1) and
+    offline (K9 a frame) on a few synthetic frames, inspect and doctor.
+    Each command's seconds; every PLY it prints loads."""
+    import contextlib
+    import io as _io
+
+    import numpy as np
+    import torch
+
+    from recon3d_tpu_torch import cli
+    from recon3d_tpu_torch.camera.fake import FakeStereoCamera
+    from recon3d_tpu_torch.depth.pipeline import DepthPipeline
+    from recon3d_tpu_torch.utils import io, native
+
+    t_phase = time.perf_counter()
+    cc = CLI
+    out_dir = tempfile.TemporaryDirectory()
+    root = out_dir.name
+    device = ["--device", str(dev)]
+    secs, printed = {}, {}
+
+    def run(tag, argv, expected):
+        buf = _io.StringIO()
+
+        def call():
+            with contextlib.redirect_stdout(buf):
+                return cli.main(argv)
+
+        t0 = time.perf_counter()
+        rc, launches = counted(call, expected)
+        secs[tag] = round(time.perf_counter() - t0, 3)
+        printed[tag] = buf.getvalue().strip().splitlines()[-1:]
+        check(rc == 0, f"cli {tag}: exit {rc}: {buf.getvalue()[-400:]}")
+        all_launches[f"cli_{tag}"] = launches
+        return buf.getvalue()
+
+    # depth: the CLI's defaults on a rig scaled to them
+    w, h = cc["depth_size"]
+    npz = os.path.join(root, "rig.npz")
+    pipeline_rig(scale=w / W).save(npz)
+    nd = cc["depth_frames"]
+    frame_k = {"K1": 2, "K2": 1, "K3": 1, "K4": 1, "K6": 6}
+    run("depth", ["depth", "--npz", npz, "--width", str(w), "--height", str(h), "--frames",
+                  str(nd), "--out", os.path.join(root, "depth")] + device,
+        {k: n * nd for k, n in frame_k.items()})
+    pngs = sorted(glob.glob(os.path.join(root, "depth", "disp_*.png")))
+    pipe = DepthPipeline.from_npz(npz, (w, h), device=dev)
+    check(pipe.plans is not None, "cli: the scaled rig's maps are not row-monotonic")
+    cam = FakeStereoCamera(width=w, height=h, focal=float(np.asarray(pipe.params.P1)[0, 0]),
+                           baseline=abs(pipe.params.baseline) or 0.06, n_frames=1)
+    cam.open()
+    disp, _, vis = pipe.process(*cam.grab())
+    first = native.png_read(pngs[0])
+    want = np.asarray((vis * 255).cpu().numpy(), np.uint8)
+    depth_valid = float((disp > 0).float().mean())
+    bars = [(len(pngs) == nd and first.shape == (h, w, 3), f"cli depth: {len(pngs)} PNGs"),
+            (np.array_equal(first, want), "cli depth: frame 0 differs from the pipeline's"),
+            (bool(torch.isfinite(disp).all()) and depth_valid > 0.5,
+             f"cli depth: valid share {depth_valid}")]
+
+    # fuse with a checkpoint, then resumed
+    ck = os.path.join(root, "fuse.npz")
+    nf, nr = cc["fuse_frames"], cc["resume_frames"]
+    run("fuse", ["fuse", "--camera", "synthetic", "--frames", str(nf), "--checkpoint", ck,
+                 "--output_dir", os.path.join(root, "fuse")] + device, {"K9": nf})
+    text = run("resume", ["fuse", "--camera", "synthetic", "--frames", str(nr), "--resume", ck,
+                          "--output_dir", os.path.join(root, "resume")] + device,
+               {"K9": nr})
+    bars.append((f"resumed at frame {nf}" in text, f"cli resume: {text[-300:]}"))
+    meshes = {}
+    for tag in ("fuse", "resume"):
+        d = io.read_ply(os.path.join(root, tag, "fused_mesh.ply"))
+        meshes[tag] = (len(d["points"]), len(d["triangles"]))
+        bars.append((len(d["triangles"]) > 1000 and np.isfinite(d["points"]).all(),
+                     f"cli {tag}: mesh {meshes[tag]}"))
+
+    # scan and offline at ScannerConfig() on a few synthetic frames
+    run("scan", ["scan", "--camera", "synthetic", "--frames", str(cc["scan_frames"]),
+                 "--output_dir", os.path.join(root, "scan")] + device,
+        {"K7": 1, "K8": 1})
+    scan_plys = sorted(glob.glob(os.path.join(root, "scan", "*.ply")))
+    no = cc["offline_frames"]
+    text = run("offline", ["offline", "--camera", "synthetic", "--frames", str(no),
+                           "--output_dir", os.path.join(root, "offline")] + device,
+               {"K9": no})
+    plys = {os.path.basename(p): io.read_ply(p) for p in scan_plys}
+    plys["offline"] = io.read_ply(text.split("-> ")[-1].strip())
+    bars.append((len(scan_plys) == 3, f"cli scan: wrote {scan_plys}"))
+    for name, d in plys.items():
+        bars.append((len(d["points"]) > 500 and np.isfinite(d["points"]).all(),
+                     f"cli: {name} holds {len(d['points'])} points"))
+
+    # inspect and doctor
+    text = run("inspect", ["inspect", "--npz", npz], {})
+    bars.append(("Baseline" in text, "cli inspect: no baseline line"))
+    text = run("doctor", ["doctor"] + device, {})
+    bars.append(("[ok  ] torch device" in text and "[ok  ] kernel library" in text,
+                 f"cli doctor: {text}"))
+    emit({"phase": "cli", "seconds": secs, "printed": printed,
+          "launches": {k: all_launches[f"cli_{k}"] for k in secs},
+          "depth_size": [h, w], "depth_valid_share": round(depth_valid, 5),
+          "fused_mesh": meshes, "ply_points": {k: len(d["points"]) for k, d in plys.items()},
+          "bars_failed": [what for ok, what in bars if not ok],
+          "phase_s": round(time.perf_counter() - t_phase, 3)})
+    out_dir.cleanup()
+    for ok, what in bars:
+        check(ok, what)
+
+
+def parallel_fusion_phase(dev, counted, all_launches, fframes, fintr):
+    """The parallel_fusion phase: parallel/fusion.py over an in-process mesh
+    of 4 frame shards on the card, 4 of the fusion phase's 640x480 frames
+    into FusionConfig()'s 256^3 volume. integrate_frames_exact (K9 twice a
+    frame: the weight pass and the affine pass) against 4 sequential
+    integrate calls (weights exact, tsdf and color within 1e-5) and bitwise
+    against the same call on K9's plain version; fused_frames_sharded of
+    frames 1-4 against frame 0 (K9 twice a frame; odometry a frame) against
+    the same chain run frame by frame (poses equal, weights exact, tsdf
+    within 1e-5) and its poses against the truth (frames 1-3 within 1 cm,
+    as the streaming phase's; frame 4 is printed: 4 steps from the one
+    keyframe, odometry may converge elsewhere and still report success)."""
+    import numpy as np
+    import torch
+
+    from recon3d_tpu_torch.config import FusionConfig
+    from recon3d_tpu_torch.fusion import tsdf
+    from recon3d_tpu_torch.ops import project_sample
+    from recon3d_tpu_torch.parallel import fusion as pfusion
+    from recon3d_tpu_torch.parallel.mesh import make_mesh
+    from recon3d_tpu_torch.registration.odometry import compute_rgbd_odometry
+    from recon3d_tpu_torch.utils.types import RGBDImage
+
+    t_phase = time.perf_counter()
+    pf = PARALLEL_FUSION
+    B, fc = pf["frames"], FusionConfig()
+    mesh = make_mesh(pf["shards"], ("frame",), device=dev)
+    colors = torch.stack([c for c, _, _ in fframes[:B + 1]])
+    depths = torch.stack([d for _, d, _ in fframes[:B + 1]])
+    exts = torch.stack([p for _, _, p in fframes[:B]])
+
+    def new_volume(color=True):
+        return tsdf.make_volume(fc.grid_resolution, fc.voxel_size, fc.sdf_trunc,
+                                origin=FUSION["origin"], with_color=color, device=dev)
+
+    def exact():
+        return pfusion.integrate_frames_exact(vol0, depths[:B], exts, fintr, mesh,
+                                              colors=colors[:B], depth_trunc=fc.depth_trunc)
+
+    vol0 = new_volume()
+    exact()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    live = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out, launches = counted(exact, {"K9": 2 * B})
+    exact_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    all_launches["parallel_fusion"] = launches
+    bars = [(not bool(vol0.weight.any()), "parallel_fusion: the caller's volume changed")]
+    seq = new_volume()
+    t0 = time.perf_counter()
+    for b in range(B):
+        seq = tsdf.integrate(seq, depths[b], fintr, exts[b], color=colors[b],
+                             depth_trunc=fc.depth_trunc)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    err = {k: float((getattr(out, k) - getattr(seq, k)).abs().max())
+           for k in ("tsdf", "color")}
+    bars.append((torch.equal(out.weight, seq.weight) and max(err.values()) <= 1e-5,
+                 f"parallel_fusion: against 4 integrates {err}"))
+    sampler = tsdf.sample_images_at
+    tsdf.sample_images_at = project_sample.sample_images_plain
+    try:
+        plain, _ = counted(exact, {})
+    finally:
+        tsdf.sample_images_at = sampler
+    bars.append((all(torch.equal(getattr(out, k), getattr(plain, k))
+                     for k in ("tsdf", "weight", "color")),
+                 "parallel_fusion: differs from the plain-K9 call"))
+    del plain, seq, out
+
+    # fused_frames_sharded: frames 1..B tracked against frame 0
+    def fused():
+        return pfusion.fused_frames_sharded(new_volume(False), colors[0], depths[0], colors[1:],
+                                            depths[1:], fintr, mesh,
+                                            depth_trunc=fc.depth_trunc)
+
+    t0 = time.perf_counter()
+    (fvol, wfc, ok), launches = counted(fused, {"K9": 2 * B})
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    all_launches["parallel_fused"] = launches
+    key = RGBDImage(color=colors[0], depth=depths[0])
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    chain = new_volume(False)
+    poses_equal, drift = True, []
+    for b in range(B):
+        res = compute_rgbd_odometry(key, RGBDImage(color=colors[b + 1], depth=depths[b + 1]),
+                                    fintr)
+        w = torch.linalg.inv(torch.where(res.success, res.transformation, eye))
+        poses_equal = poses_equal and torch.equal(w, wfc[b])
+        chain = tsdf.integrate(chain, depths[b + 1], fintr, torch.linalg.inv(w),
+                               depth_trunc=fc.depth_trunc)
+        # the extrinsics are camera_from_world = true_pose(k): frame k's
+        # pose in frame 0's is true_pose(0) inv(true_pose(k))
+        truth = fframes[0][2] @ torch.linalg.inv(fframes[b + 1][2])
+        drift.append(float((w[:3, 3] - truth[:3, 3]).norm()))
+    f_err = float((fvol.tsdf - chain.tsdf).abs().max())
+    bars += [(bool(ok.all()) and poses_equal, "parallel_fusion: fused poses differ"),
+             (torch.equal(fvol.weight, chain.weight) and f_err <= 1e-5,
+              f"parallel_fusion: fused volume against the chain {f_err}"),
+             (max(drift[:3]) < 0.01, f"parallel_fusion: frames 1-3 drift {drift[:3]}")]
+    emit({"phase": "parallel_fusion", "frames": B, "shards": mesh.n,
+          "resolution": fc.grid_resolution, "frame": [FUSION["height"], FUSION["width"]],
+          "launches": {"integrate_frames_exact": all_launches["parallel_fusion"],
+                       "fused_frames_sharded": all_launches["parallel_fused"]},
+          "exact_ms": round(exact_ms, 3), "sequential_ms": round(seq_ms, 3),
+          "fused_ms": round(fused_ms, 3), "peak_mem_bytes": peak,
+          "mem_live_before_bytes": live, "exact_extra_peak_bytes": peak - live,
+          "volume_bytes": sum(t.numel() * t.element_size()
+                              for t in (vol0.tsdf, vol0.weight, vol0.color)),
+          "vs_sequential_max": err, "fused_vs_chain_tsdf_max": f_err,
+          "fused_drift_m": [round(d, 6) for d in drift], "plain_k9_equal": True,
+          "bars_failed": [what for ok_, what in bars if not ok_],
+          "phase_s": round(time.perf_counter() - t_phase, 3)})
+    del fvol, chain
+    for ok_, what in bars:
+        check(ok_, what)
+
+
+def scalable_phase(dev, counted, all_launches, fframes, fintr):
+    """The scalable phase: fusion/scalable.py at make_scalable_volume()'s
+    defaults on the card (voxel 0.004, 8^3 bricks, 4096-brick pool, 16384
+    slots, color) fed the fusion phase's 30 frames, maybe_grow after each:
+    ms a frame, bricks, grows, drops, the host syncs of one more frame by
+    line; extract_triangle_mesh (256^3 windows)
+    against the scene; a run saved at frame 15, loaded and continued,
+    bitwise the uninterrupted run; the first 2 frames on the host CPU
+    against the card's (keys, table and counters equal; tsdf, weight and
+    color within 1e-6). No kernel runs on this path."""
+    import numpy as np
+    import torch
+
+    from recon3d_tpu_torch.fusion import scalable
+
+    t_phase = time.perf_counter()
+    cs = SCALABLE
+    fields = ("brick_keys", "table", "n_alloc", "n_dropped", "tsdf", "weight", "color")
+    log = {"frame_ms": [], "bricks": [], "dropped": [], "capacity": []}
+
+    def run(vol, frames, device=None, record=None):
+        for c, d, pose in frames:
+            if device is not None:
+                c, d, pose = c.to(device), d.to(device), pose.to(device)
+            t0 = time.perf_counter()
+            vol = scalable.integrate(vol, d, fintr, pose, color=c)
+            if record is not None:
+                torch.cuda.synchronize()
+                record["frame_ms"].append((time.perf_counter() - t0) * 1e3)
+                record["bricks"].append(int(vol.n_alloc))
+                record["dropped"].append(int(vol.n_dropped))
+            vol = scalable.maybe_grow(vol)
+            if record is not None:
+                record["capacity"].append(vol.capacity)
+        return vol
+
+    N = len(fframes)
+    first = run(scalable.make_scalable_volume(device=dev), fframes[:cs["host_frames"]])
+    vol, launches = counted(lambda: run(scalable.make_scalable_volume(device=dev), fframes,
+                                        record=log), {})
+    all_launches["scalable"] = launches
+    grows = sum(b > a for a, b in zip([4096] + log["capacity"], log["capacity"]))
+    # the host syncs of one more frame (integrate + maybe_grow), by line
+    c, d, pose = fframes[-1]
+    _, frame_syncs = sync_sites(lambda: scalable.maybe_grow(
+        scalable.integrate(vol, d, fintr, pose, color=c)))
+
+    # save at frame 15, load, continue: bitwise the uninterrupted run
+    half = cs["save_at"]
+    part = run(scalable.make_scalable_volume(device=dev), fframes[:half])
+    ckpt_dir = tempfile.TemporaryDirectory()
+    path = scalable.save_scalable_volume(os.path.join(ckpt_dir.name, "scalable.npz"), part)
+    resumed = run(scalable.load_scalable_volume(path, device=dev), fframes[half:])
+    resumed_equal = all(torch.equal(getattr(vol, f), getattr(resumed, f)) for f in fields)
+    ckpt_bytes = os.path.getsize(path)
+    ckpt_dir.cleanup()
+    del part, resumed
+
+    # the mesh of the occupied windows against the scene
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh = scalable.extract_triangle_mesh(vol, window=cs["window"])
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    verts = mesh.vertices[mesh.vertex_valid]
+    mesh_median = float(scene_distance(verts).median())
+    windows = len(scalable.occupied_window_origins(vol, cs["window"]))
+
+    # the host CPU on the first frames
+    t0 = time.perf_counter()
+    host = run(scalable.make_scalable_volume(device="cpu"), fframes[:cs["host_frames"]],
+               device="cpu")
+    host_s = time.perf_counter() - t0
+    same = {f: torch.equal(getattr(first, f).cpu(), getattr(host, f)) for f in fields[:4]}
+    host_err = {f: float((getattr(first, f).cpu() - getattr(host, f)).abs().max())
+                for f in fields[4:]}
+    bars = [(resumed_equal, "scalable: save / load / continue differs from one run"),
+            (all(same.values()) and max(host_err.values()) <= 1e-6,
+             f"scalable: card against host {same} {host_err}"),
+            (int(vol.n_dropped) == 0 and log["bricks"][-1] > 1000,
+             f"scalable: bricks {log['bricks'][-1]}, dropped {int(vol.n_dropped)}"),
+            (int(mesh.triangle_valid.sum()) > 10000 and mesh_median < 0.004,
+             f"scalable: mesh median {mesh_median} m from the scene")]
+    emit({"phase": "scalable", "frames": N, "frame": [FUSION["height"], FUSION["width"]],
+          "launches": launches, "voxel_size": float(vol.voxel_size), "brick_size": vol.brick_size,
+          "frame_ms_median": round(statistics.median(log["frame_ms"]), 3),
+          "frame_ms": [round(t, 3) for t in log["frame_ms"]], "bricks": log["bricks"][-1],
+          "bricks_per_frame": log["bricks"], "dropped_per_frame": log["dropped"],
+          "capacity_final": vol.capacity, "table_final": int(vol.table.shape[0]),
+          "grows": grows, "frame_sync_sites": frame_syncs,
+          "frame_host_syncs": sum(frame_syncs.values()), "resumed_equal": resumed_equal, "checkpoint_bytes": ckpt_bytes,
+          "extract_s": round(extract_s, 3), "windows": windows,
+          "mesh_triangles": int(mesh.triangle_valid.sum()), "mesh_vs_truth_median_m": mesh_median,
+          "host_frames": cs["host_frames"], "host_s": round(host_s, 3), "host_equal": same,
+          "host_max_abs_err": host_err,
+          "bars_failed": [what for ok, what in bars if not ok],
+          "phase_s": round(time.perf_counter() - t_phase, 3)})
+    del vol, mesh, first, host
+    for ok, what in bars:
+        check(ok, what)
+
+
+def viewers_phase(dev, counted, all_launches, cloud, fr):
+    """The viewers phase: render_points of the scanner phase's processed
+    cloud at 960x720 (no kernel) timed and bitwise its host render;
+    LiveDepthViewer with a sink on DepthPipeline(pipeline_rig()) at
+    1920x1080 over 3 frames of the bench's raw pair (K1 x 2, K2, K3, K4,
+    K6 x 6 a frame; the sunk frame bitwise the pipeline's own);
+    live_remesh_loop over a 2-frame StreamingScanner at ScannerConfig()'s
+    defaults with 2 remeshes (K7 1 and K8 1 each), the camera held before
+    frame 2 until the first remesh is shown; each remesh's normals (K7 +
+    K8 on the loop's accumulated cloud) bitwise their plain versions on the
+    same cloud."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from recon3d_tpu_torch.camera.fake import SyntheticRGBDCamera
+    from recon3d_tpu_torch.config import ScannerConfig
+    from recon3d_tpu_torch.depth import DepthPipeline
+    from recon3d_tpu_torch.pipeline import live, render, visualizer
+    from recon3d_tpu_torch.pipeline.scanner import StreamingScanner
+    from recon3d_tpu_torch.pointcloud import normals
+    from recon3d_tpu_torch.utils.types import CameraIntrinsics
+
+    t_phase = time.perf_counter()
+    cv = VIEWERS
+    rh, rw = cv["render_size"]
+    pts = cloud.points
+    cols = cloud.colors if cloud.colors is not None else torch.full_like(pts, 0.75)
+    host_pts = pts[cloud.valid].cpu().numpy()
+    view = torch.as_tensor(render.orbit_view(host_pts.mean(0), 1.6 * float(
+        np.linalg.norm(host_pts.max(0) - host_pts.min(0))), 20.0, -20.0), device=dev)
+
+    def draw():
+        return render.render_points(pts, cols, cloud.valid, view, 0.9 * rw, height=rh, width=rw)
+
+    img, launches = counted(draw, {})
+    render_ms = cuda_ms(draw, KERNEL_RUNS)
+    host_img = render.render_points(pts.cpu(), cols.cpu(), cloud.valid.cpu(), view.cpu(),
+                                    0.9 * rw, height=rh, width=rw)
+    lit = float((img != np.float32(0.08)).any(-1).float().mean())
+    bars = [(torch.equal(img.cpu(), host_img), "viewers: render differs from the host's"),
+            (lit > 0.01, f"viewers: {lit} of the image lit")]
+
+    # LiveDepthViewer: the depth pipeline's frames into a sink
+    class Replay:
+        def __init__(self, img):
+            self.img = img
+
+        def read(self):
+            return True, (self.img,)
+
+    pipe = DepthPipeline(pipeline_rig(), (W, H), fr["m"], fr["w"], device=dev)
+    sunk = []
+    viewer = live.LiveDepthViewer(pipe, sink=lambda name, im: sunk.append((name, im)))
+    nf = cv["depth_frames"]
+    frame_k = {"K1": 2, "K2": 1, "K3": 1, "K4": 1, "K6": 6}
+    t0 = time.perf_counter()
+    n, launches = counted(lambda: viewer.run(Replay(fr["raw_l"]), Replay(fr["raw_r"]),
+                                             max_frames=nf),
+                          {k: v * nf for k, v in frame_k.items()})
+    viewer_ms = (time.perf_counter() - t0) * 1e3 / nf
+    all_launches["viewers_depth"] = launches
+    vis = live.host_image(pipe.process(fr["raw_l"], fr["raw_r"])[2])
+    want = np.clip(vis * (255.0 if vis.max() <= 1.0 else 1.0), 0, 255).astype(np.uint8)
+    bars.append((n == nf and len(sunk) == nf and all(nm == "disparity" for nm, _ in sunk)
+                 and np.array_equal(sunk[0][1], want),
+                 f"viewers: LiveDepthViewer showed {len(sunk)} frames, not the pipeline's"))
+    del pipe, sunk
+
+    # live_remesh_loop: 2 frames, a remesh after each
+    out_dir = tempfile.TemporaryDirectory()
+    cam = SyntheticRGBDCamera(cv["scan_width"], cv["scan_height"], n_frames=2)
+    intr = CameraIntrinsics(cam.fx, cam.fy, cam.cx, cam.cy)
+    sc = StreamingScanner(cam, intr, ScannerConfig(output_dir=out_dir.name), device=dev)
+    shown = threading.Event()
+    grab = cam.grab
+
+    def gated_grab():
+        if cam._i == 1:  # frame 2 waits for the first remesh
+            shown.wait(cv["timeout_s"])
+        return grab()
+
+    cam.grab = gated_grab
+    vis3d = visualizer.LiveVisualizer3D(width=rw, height=rh, offscreen=True)
+    update = vis3d.update
+    remesh_t = []
+
+    def show(mesh):
+        remesh_t.append(time.perf_counter())
+        ok = update(mesh)
+        shown.set()
+        return ok
+
+    vis3d.update = show
+    # each remesh's K7 + K8 normals, kept with their inputs (the loop's
+    # accumulated cloud) to hold against the plain versions afterwards
+    grid_normals, remeshed = normals._grid_normals, []
+
+    def recorded(points, valid, radius, G, C):
+        out = grid_normals(points, valid, radius, G, C)
+        remeshed.append((points.clone(), valid.clone(), radius, G, C, out))
+        return out
+
+    normals._grid_normals = recorded
+    t0 = time.perf_counter()
+    try:
+        meshes, launches = counted(lambda: visualizer.live_remesh_loop(sc, vis3d, frames=2),
+                                   {"K7": 2, "K8": 2})
+    finally:
+        normals._grid_normals = grid_normals
+    loop_s = time.perf_counter() - t0
+    all_launches["live_remesh"] = launches
+    tris = [int(m.triangle_valid.sum()) for m in meshes]
+    bars.append((len(meshes) == 2 and min(tris) > 1000 and vis3d.frame is not None
+                 and vis3d.frame.max() > 0, f"viewers: live_remesh_loop meshes {tris}"))
+    remesh_points = [[int(r[1].sum()), r[0].shape[0]] for r in remeshed]  # valid, capacity
+    plain_equal = [torch.equal(out, plain_grid_normals(p, v, radius, G, C)[0])
+                   for p, v, radius, G, C, out in remeshed]
+    bars.append((len(remeshed) == 2 and all(plain_equal),
+                 f"viewers: the remeshes' K7 + K8 normals against the plain versions "
+                 f"{plain_equal} on {remesh_points} points"))
+    del remeshed
+    out_dir.cleanup()
+    emit({"phase": "viewers", "render_size": [rh, rw], "render_points": int(cloud.valid.sum()),
+          "render_ms": round(render_ms, 4), "render_lit_share": round(lit, 5),
+          "render_host_equal": True, "depth_viewer_frames": nf,
+          "depth_viewer_ms_per_frame": round(viewer_ms, 3),
+          "launches": {"depth_viewer": all_launches["viewers_depth"],
+                       "live_remesh_loop": all_launches["live_remesh"]},
+          "remeshes": len(meshes), "remesh_triangles": tris, "live_remesh_s": round(loop_s, 3),
+          "remesh_points": remesh_points, "remesh_k7_k8_plain_equal": plain_equal,
+          "bars_failed": [what for ok, what in bars if not ok],
+          "phase_s": round(time.perf_counter() - t_phase, 3)})
     for ok, what in bars:
         check(ok, what)
 
@@ -2752,21 +3291,35 @@ def main():
                       dict(raw_l=raw_l, raw_r=raw_r, gl=gl, gr=gr, dt=dt, m=m, w=w,
                            against=against, frame_stats=frame_stats))
     offline_phase(dev, counted, all_launches)
-    scanner_phase(dev, counted, all_launches)
+    scan_cloud = scanner_phase(dev, counted, all_launches)
+    cli_phase(dev, counted, all_launches)
+    parallel_fusion_phase(dev, counted, all_launches, fframes[:PARALLEL_FUSION["frames"] + 1],
+                          fintr)
+    scalable_phase(dev, counted, all_launches, fframes, fintr)
+    viewers_phase(dev, counted, all_launches, scan_cloud, dict(raw_l=raw_l, raw_r=raw_r, m=m, w=w))
+    del scan_cloud
 
     # ---- kernels against their plain versions, on their paths' inputs
     rows = []
     n_el = HP * WP * DP
 
+    # the paths of the cli, parallel_fusion, viewers phases: each kernel's
+    # launches there, on every row of the kernel
+    later_paths = ("cli_depth", "cli_fuse", "cli_resume", "cli_scan", "cli_offline",
+                   "parallel_fusion", "parallel_fused", "viewers_depth", "live_remesh")
+
     def row(name, source, replaces, launches, err, times, plain_ms, bound, library_ms=None,
             **extra):
         """A kernel row; `times` from kernel_times (its ms is held to the bound)."""
+        key = "K1 pass" if name.startswith("K1 resample_pass") else name.split()[0]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=launches, max_abs_err=err, ms=round(times["ms"], 4),
                          plain_ms=round(plain_ms, 4), bound_ms=round(bound[0], 4),
                          bound_by=bound[1], ops_ceiling=bound[2],
                          library_ms=None if library_ms is None else round(library_ms, 4),
-                         **{k: round(v, 4) for k, v in times.items() if k != "ms"}, **extra))
+                         **{k: round(v, 4) for k, v in times.items() if k != "ms"},
+                         path_launches={p: all_launches[p][key] for p in later_paths
+                                        if key in all_launches.get(p, {})}, **extra))
 
     slice_n = all_launches["slice"]
 
@@ -2790,7 +3343,7 @@ def main():
         "recon3d_tpu/ops/warp.py:266, recon3d_tpu/ops/warp.py:276",
         all_launches["headline"]["K1"], float((out_k - out_q).abs().max()),
         kernel_times(lambda: warp.remap_two_pass_cuda(raw_l, plan), nbytes, KERNEL_RUNS),
-        cuda_ms(lambda: warp.remap_two_pass(raw_l, plan), PLAIN_RUNS),
+        plain_ms(lambda: warp.remap_two_pass(raw_l, plan)),
         bound_ms(nbytes, 28 * H * W), grid_ms, library=library,
         profiled_ms=k1_profiled_ms)
     t_k = warp.resample_pass(raw_l, plan.vy, plan.v_coarse, plan.v_coarse_bits,
@@ -2808,7 +3361,7 @@ def main():
             f"recon3d_tpu/ops/warp.py:{266 if axis == 0 else 276}",
             all_launches["one_pass"]["K1 pass"] // 2, float((out_k - out_q).abs().max()),
             kernel_times(lambda: warp.resample_pass(*args), nbytes, KERNEL_RUNS),
-            cuda_ms(lambda: warp.resample_pass_plain(*args), PLAIN_RUNS),
+            plain_ms(lambda: warp.resample_pass_plain(*args)),
             bound_ms(nbytes, 14 * H * W), grid_ms, library=library)
     del t_k, out_k, out_q, grid
 
@@ -2860,7 +3413,7 @@ def main():
     nbytes = 6 * H * W * 4 + cost_b + v1_b
     row("K2 cost_fwd_down", "recon3d_tpu_torch/csrc/sgm_cost.cu",
         "recon3d_tpu/depth/sgm_pallas.py:985", slice_n["K2"], err,
-        kernel_times(k2, nbytes, KERNEL_RUNS), cuda_ms(k2p, PLAIN_RUNS),
+        kernel_times(k2, nbytes, KERNEL_RUNS), plain_ms(k2p),
         bound_ms(nbytes, 30 * n_el), ms_without_down=round(run_ms(k2_no_down, KERNEL_RUNS), 4),
         stages_ms={k: round(v, 4) for k, v in stage_ms.items()})
 
@@ -2873,7 +3426,7 @@ def main():
         "recon3d_tpu/depth/sgm_pallas.py:1067", std_n["K14 fwd"],
         float((v_k - v_q).abs().max()),
         kernel_times(lambda: sgm_cuda.fwd_scan(cost_k, p1, p2), cost_b + v1_b, KERNEL_RUNS),
-        cuda_ms(lambda: sgm_cuda.fwd_scan_plain(cost_k, p1, p2), PLAIN_RUNS),
+        plain_ms(lambda: sgm_cuda.fwd_scan_plain(cost_k, p1, p2)),
         bound_ms(cost_b + v1_b, 8 * n_el))
     d_k = sgm_cuda.down_accumulate(cost_k, v_k.clone(), p1, p2)
     d_q = sgm_cuda.down_accumulate_plain(cost_k, v_k.clone(), p1, p2)
@@ -2884,7 +3437,7 @@ def main():
         float((d_k - d_q).abs().max()),
         kernel_times(lambda v: sgm_cuda.down_accumulate(cost_k, v, p1, p2),
                      cost_b + 2 * v1_b, KERNEL_RUNS, lambda: (v_k.clone(),)),
-        cuda_ms(lambda v: sgm_cuda.down_accumulate_plain(cost_k, v, p1, p2), PLAIN_RUNS,
+        plain_ms(lambda v: sgm_cuda.down_accumulate_plain(cost_k, v, p1, p2),
                 lambda: (v_k.clone(),)),
         bound_ms(cost_b + 2 * v1_b, 9 * n_el))
     del v_k, v_q, d_k, d_q
@@ -2899,7 +3452,7 @@ def main():
         "recon3d_tpu/depth/sgm_pallas.py:1094", slice_n["K3"], err,
         kernel_times(lambda v: sgm_cuda.bwd_accumulate(cost_k, v, p1, p2), cost_b + 2 * v1_b,
                      KERNEL_RUNS, lambda: (v1_k.clone(),)),
-        cuda_ms(lambda v: sgm_cuda.bwd_accumulate_plain(cost_k, v, p1, p2), PLAIN_RUNS,
+        plain_ms(lambda v: sgm_cuda.bwd_accumulate_plain(cost_k, v, p1, p2),
                 lambda: (v1_k.clone(),)),
         bound_ms(cost_b + 2 * v1_b, 8 * n_el))
     del v1_k
@@ -2920,7 +3473,7 @@ def main():
         "recon3d_tpu/depth/sgm_pallas.py:1135", slice_n["K4"], float((d_k - d_q).abs().max()),
         kernel_times(lambda: sgm_cuda.vfinalize(cost_k, v3_k, *args),
                      cost_b + v1_b + HP * WP * 8, KERNEL_RUNS),
-        cuda_ms(lambda: sgm_cuda.vfinalize_plain(cost_k, v3_k, *args), PLAIN_RUNS),
+        plain_ms(lambda: sgm_cuda.vfinalize_plain(cost_k, v3_k, *args)),
         bound_ms(cost_b + v1_b + HP * WP * 8, 16 * n_el),
         ms_without_lr_check=round(run_ms(lambda: sgm_cuda.vfinalize(cost_k, v3_k, *no_lr),
                                          KERNEL_RUNS), 4))
@@ -2944,8 +3497,8 @@ def main():
             float((out_k - out_q).abs().max()),
             kernel_times(lambda v: sgm_cuda.diag_accumulate(cost8, v, p1, p2_8, vertical),
                          cost_b + 2 * v1_b, KERNEL_RUNS, lambda: (v8.clone(),)),
-            cuda_ms(lambda v: sgm_cuda.diag_accumulate_plain(cost8, v, p1, p2_8, vertical),
-                    PLAIN_RUNS, lambda: (v8.clone(),)),
+            plain_ms(lambda v: sgm_cuda.diag_accumulate_plain(cost8, v, p1, p2_8, vertical),
+                     lambda: (v8.clone(),)),
             bound_ms(cost_b + 2 * v1_b, 2 * 9 * n_el),
             two_pass_floor_ms=round(bound_ms(2 * (cost_b + 2 * v1_b), 0)[0], 4))
         del out_k, out_q
@@ -2970,7 +3523,7 @@ def main():
         float((v3_k - v3_q).abs().max()),
         kernel_times(lambda v: sgm_sharded.bwd_accumulate_shard(cost_l, v, p1, p2), shard_b,
                      KERNEL_RUNS, lambda: (v1_l.clone(),)),
-        cuda_ms(lambda v: sgm_cuda.bwd_accumulate_plain(cost_l, v, p1, p2), PLAIN_RUNS,
+        plain_ms(lambda v: sgm_cuda.bwd_accumulate_plain(cost_l, v, p1, p2),
                 lambda: (v1_l.clone(),)),
         bound_ms(shard_b, 8 * el), shard=list(cost_l.shape), h_real=h_l)
     del v1_l, v3_k, v3_q
@@ -3007,8 +3560,8 @@ def main():
                 kernel_times(lambda v: inplace(shards.cost[last], v, carry, p1, p2_, reverse,
                                                h_l), shard_b + 2 * carry.numel() * 4, KERNEL_RUNS,
                              lambda: (S_l.clone(),)),
-                cuda_ms(lambda v: plain(shards.cost[last], v, carry, p1, p2_, reverse, h_l),
-                        PLAIN_RUNS, lambda: (S_l.clone(),)),
+                plain_ms(lambda v: plain(shards.cost[last], v, carry, p1, p2_, reverse, h_l),
+                         lambda: (S_l.clone(),)),
                 bound_ms(shard_b + 2 * carry.numel() * 4, 9 * (planes[0] if planes else 1) * el),
                 shard=list(cost_l.shape), h_real=h_l, carry_max=float(carry.max()), **extra)
             del out_k, out_q, cout_k, cout_q
@@ -3034,7 +3587,7 @@ def main():
         float((d_k - d_q).abs().max()),
         kernel_times(lambda: sgm_cuda.wta_finalize(S_l, *fin), el * 4 + d_k.numel() * 5,
                      KERNEL_RUNS),
-        cuda_ms(lambda: sgm_cuda.wta_finalize_plain(S_l, *fin), PLAIN_RUNS),
+        plain_ms(lambda: sgm_cuda.wta_finalize_plain(S_l, *fin)),
         bound_ms(el * 4 + d_k.numel() * 5, 8 * el), shard=list(S_l.shape),
         ms_without_lr_check=round(run_ms(lambda: sgm_cuda.wta_finalize(S_l, *fin_no_lr),
                                          KERNEL_RUNS), 4))
@@ -3067,7 +3620,7 @@ def main():
         err = max(err, float((out_k - out_q).abs().max()))
         times.append(kernel_times(lambda: wls_cuda.tridiag_solve(*sp, axis), 5 * H * W * 4,
                                   KERNEL_RUNS))
-        plain_times.append(cuda_ms(lambda: wls_cuda.tridiag_solve_plain(*sp, axis), PLAIN_RUNS))
+        plain_times.append(plain_ms(lambda: wls_cuda.tridiag_solve_plain(*sp, axis)))
     row("K6 tridiag_solve", "recon3d_tpu_torch/csrc/wls_tridiag.cu",
         "recon3d_tpu/depth/wls_pallas.py:102", slice_n["K6"], err,
         {k: (times[0][k] + times[1][k]) / 2 for k in times[0]}, sum(plain_times) / 2,
@@ -3091,7 +3644,7 @@ def main():
         row(f"K7 pack_cells {shape}", "recon3d_tpu_torch/csrc/grid_pack.cu",
             "recon3d_tpu/ops/grid_knn_pallas.py:319", all_launches[shape]["K7"], 0.0,
             kernel_times(lambda: grid_knn_cuda.pack_cells(sp, start, C_), nbytes, KERNEL_RUNS),
-            cuda_ms(lambda: grid_knn.pack_plain(sp, start, C_), PLAIN_RUNS),
+            plain_ms(lambda: grid_knn.pack_plain(sp, start, C_)),
             bound_ms(nbytes, 0), run_ms(lambda: torch.index_select(sp, 0, pos), KERNEL_RUNS),
             library="torch.index_select of the sorted points at the clamped slot positions: "
                     "the placement without occupancy", grid=[G_, C_],
@@ -3112,7 +3665,7 @@ def main():
                 "recon3d_tpu/ops/grid_knn_pallas.py:147", all_launches[path]["K8"], 0.0,
                 kernel_times(lambda: grid_knn_cuda.core_call(pk_q, r2, G_, C_, fused), nbytes,
                              KERNEL_RUNS),
-                cuda_ms(lambda: grid_knn.core_plain(pk_q, r2, G_, C_, fused), PLAIN_RUNS),
+                plain_ms(lambda: grid_knn.core_plain(pk_q, r2, G_, C_, fused)),
                 bound_ms(nbytes, k8_operations(pk_q, cnt, G_, C_, fused), F32_INSTR_PER_S),
                 None, library="none: no single PyTorch call computes it", grid=[G_, C_],
                 tile=list(grid_knn_cuda.k8_tile(G_, C_)), bitwise=True,
@@ -3137,7 +3690,7 @@ def main():
         float((s_k - s_q).abs().max()),
         kernel_times(lambda: project_sample_cuda.sample_images_cuda(vc, uc, imgs), nbytes,
                      KERNEL_RUNS),
-        cuda_ms(lambda: project_sample.sample_images_plain(vc, uc, imgs), PLAIN_RUNS),
+        plain_ms(lambda: project_sample.sample_images_plain(vc, uc, imgs)),
         bound_ms(nbytes, 0), run_ms(lambda: imgs[:, vcl, ucl], KERNEL_RUNS),
         library="advanced-index gather imgs[:, vc, uc] (the plain version itself)",
         shape=[*imgs.shape, fcfg.grid_resolution],

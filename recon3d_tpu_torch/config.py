@@ -1,5 +1,6 @@
 """Matcher, WLS, stream, point-cloud processing, registration, fusion,
-meshing and scanner configuration (twin of recon3d_tpu/config.py:19-201).
+meshing and scanner configuration, and the argparse bridge that makes
+--flags of their fields (twin of recon3d_tpu/config.py).
 
 Frozen dataclasses with the reference's defaults. The only difference from
 the JAX package is the `backend` vocabulary: 'cuda' is the hand-written
@@ -9,7 +10,9 @@ device (kernel path on CUDA, oracle on CPU) as JAX's picks by platform.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+from typing import Optional, get_type_hints
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,3 +181,65 @@ class ScannerConfig:
     # stop the scan thread after this long without a single valid frame from
     # a live source (replay sources cut on a short empty-read streak instead)
     empty_timeout_s: float = 5.0
+
+
+_LEAF = (int, float, str, bool)
+
+
+def add_dataclass_args(parser: argparse.ArgumentParser, cls, prefix: str = "") -> None:
+    """Auto-generate --flags from (nested) dataclass fields."""
+    hints = get_type_hints(cls)
+    for f in dataclasses.fields(cls):
+        t = hints[f.name]
+        name = f"{prefix}{f.name}"
+        if dataclasses.is_dataclass(t):
+            add_dataclass_args(parser, t, prefix=f"{name}.")
+        elif t in _LEAF:
+            default = f.default if f.default is not dataclasses.MISSING else f.default_factory()
+            if t is bool:
+                parser.add_argument(f"--{name}", type=lambda s: s.lower() in ("1", "true", "yes"),
+                                    default=default, metavar="BOOL")
+            else:
+                parser.add_argument(f"--{name}", type=t, default=default)
+
+
+def dataclass_from_args(cls, args: argparse.Namespace, prefix: str = ""):
+    """Rebuild a (nested) dataclass from parsed args: each field from its
+    dotted flag name (or the name with "_" for ".", where a caller stored it
+    so), else its default."""
+    hints = get_type_hints(cls)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        t = hints[f.name]
+        name = f"{prefix}{f.name}"
+        if dataclasses.is_dataclass(t):
+            kw[f.name] = dataclass_from_args(t, args, prefix=f"{name}.")
+        elif t in _LEAF:
+            kw[f.name] = getattr(args, name.replace(".", "_"), getattr(args, name, None))
+            if kw[f.name] is None:
+                kw[f.name] = f.default if f.default is not dataclasses.MISSING else f.default_factory()
+    return cls(**kw)
+
+
+def parse_scanner_config(argv: Optional[list] = None) -> ScannerConfig:
+    """CLI covering (a superset of) mini1.py:538-556's flags, with the
+    reference's aliases --voxel_size, --downsample_voxel_size, --sdf_trunc
+    and --fps."""
+    p = argparse.ArgumentParser(description="recon3d_tpu_torch scanner")
+    add_dataclass_args(p, ScannerConfig)
+    p.add_argument("--voxel_size", type=float, default=None, help="alias of --fusion.voxel_size")
+    p.add_argument("--downsample_voxel_size", type=float, default=None,
+                   help="alias of --processing.voxel_size")
+    p.add_argument("--sdf_trunc", type=float, default=None, help="alias of --fusion.sdf_trunc")
+    p.add_argument("--fps", type=int, default=None, help="alias of --stream.fps")
+    args = p.parse_args(argv)
+    ns = vars(args)
+    if args.voxel_size is not None:
+        ns["fusion.voxel_size"] = args.voxel_size
+    if args.downsample_voxel_size is not None:
+        ns["processing.voxel_size"] = args.downsample_voxel_size
+    if args.sdf_trunc is not None:
+        ns["fusion.sdf_trunc"] = args.sdf_trunc
+    if args.fps is not None:
+        ns["stream.fps"] = args.fps
+    return dataclass_from_args(ScannerConfig, args)

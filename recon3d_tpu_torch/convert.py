@@ -6,7 +6,9 @@ point-cloud processing, fusion and meshing configuration (passed as
 reprojection matrix Q, optionally the pinhole intrinsics as a 3x3 K, the
 stereo calibration (`stereo_params`), the two-pass warp plans
 (`remap_plan`), point clouds (`point_cloud`; with a leading batch axis,
-`point_clouds`), TSDF volumes (`tsdf_volume`), triangle meshes
+`point_clouds`), TSDF volumes (`tsdf_volume`), scalable TSDF volumes
+(`scalable_volume`; back to the JAX one's fields: `scalable_volume_arrays`),
+triangle meshes
 (`triangle_mesh`; Poisson's with its densities, `poisson_mesh`), RGB-D
 frames (`rgbd_image`), pinhole intrinsics (`camera_intrinsics`), pose graphs
 (`pose_graph`), registration results (`registration_result`), the scanners'
@@ -29,6 +31,7 @@ from recon3d_tpu_torch.calib.stereo import RectifyResult, StereoCalibrationResul
 from recon3d_tpu_torch.config import (FusionConfig, MeshConfig, ProcessingConfig,
                                       RegistrationConfig, ScannerConfig, StereoMatcherConfig,
                                       StreamConfig, WLSConfig)
+from recon3d_tpu_torch.fusion.scalable import ScalableTSDFVolume
 from recon3d_tpu_torch.fusion.tsdf import TSDFVolume
 from recon3d_tpu_torch.ops.warp import RemapPlan
 from recon3d_tpu_torch.registration.icp import RegistrationResult
@@ -152,6 +155,27 @@ def tsdf_volume(arrays: dict, device="cuda") -> TSDFVolume:
     return TSDFVolume(**{k: _put(arrays, k, np.float32, device)
                          for k in ("tsdf", "weight", "origin", "voxel_size", "sdf_trunc",
                                    "color")})
+
+
+_SCALABLE_DTYPES = dict(brick_keys=np.int32, table=np.int32, tsdf=np.float32,
+                       weight=np.float32, origin=np.float32, voxel_size=np.float32,
+                       sdf_trunc=np.float32, n_alloc=np.int32, n_dropped=np.int32,
+                       color=np.float32)
+
+
+def scalable_volume(arrays: dict, device="cuda") -> ScalableTSDFVolume:
+    """The port's ScalableTSDFVolume from the JAX one's fields as numpy
+    arrays (brick pool, hash table, counters and, where present, color)."""
+    return ScalableTSDFVolume(**{k: _put(arrays, k, t, device)
+                                 for k, t in _SCALABLE_DTYPES.items()})
+
+
+def scalable_volume_arrays(vol: ScalableTSDFVolume) -> dict:
+    """The fields of a port ScalableTSDFVolume as numpy arrays of the JAX
+    one's dtypes (its constructor's keyword arguments; color None where the
+    volume has none)."""
+    return {k: None if getattr(vol, k) is None else
+            np.asarray(getattr(vol, k).cpu().numpy(), t) for k, t in _SCALABLE_DTYPES.items()}
 
 
 def triangle_mesh(arrays: dict, device="cuda") -> TriangleMesh:

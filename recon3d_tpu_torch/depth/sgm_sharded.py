@@ -33,13 +33,13 @@ device.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 
 from recon3d_tpu_torch import kernels
 from recon3d_tpu_torch.depth import sgm_cuda
-from recon3d_tpu_torch.parallel.mesh import Mesh
+from recon3d_tpu_torch.parallel.mesh import Mesh, MeshGrid, axis_view
 
 _HALO = 8  # prefiltered plane rows exchanged per side (>= the box radius)
 
@@ -182,7 +182,7 @@ def aggregate(sh: RowShards, p1: float, p2: float, num_directions: int) -> None:
 def sgm_disparity_cuda_rowsharded(
     left_gray: torch.Tensor,
     right_gray: torch.Tensor,
-    mesh: Mesh,
+    mesh: Union[Mesh, MeshGrid],
     axis_name: str = "row",
     num_disparities: int = 128,
     min_disparity: int = 0,
@@ -208,8 +208,7 @@ def sgm_disparity_cuda_rowsharded(
     if block_size // 2 > _HALO:
         raise ValueError(f"block_size={block_size} needs {block_size // 2} prefiltered halo "
                          f"rows per side but only {_HALO} are exchanged")
-    if axis_name != mesh.axis_name:
-        raise ValueError(f"the mesh's axis is {mesh.axis_name!r}, not {axis_name!r}")
+    mesh = axis_view(mesh, axis_name)
     if p1 is None:
         p1 = 8.0 * block_size * block_size
     if p2 is None:

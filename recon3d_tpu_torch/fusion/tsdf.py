@@ -98,7 +98,14 @@ def _pixel_indices(vol: TSDFVolume, H: int, W: int, intr: CameraIntrinsics,
                    extrinsic: torch.Tensor):
     """Each voxel's camera depth z, in-image mask and clipped pixel (vc, uc)
     (R, R, R) int32 in an (H, W) frame seen from `extrinsic`."""
-    x, y, z = _cam_coords(_voxel_centers(vol), extrinsic)
+    return _project(_voxel_centers(vol), H, W, intr, extrinsic)
+
+
+def _project(pts: torch.Tensor, H: int, W: int, intr: CameraIntrinsics,
+             extrinsic: torch.Tensor):
+    """(z, in-image mask, vc, uc) of world points (..., 3) in an (H, W)
+    frame seen from `extrinsic`, rounded as the jitted JAX integrate."""
+    x, y, z = _cam_coords(pts, extrinsic)
     zc = torch.clamp(z, min=1e-9)
     u = intr.fx * x / zc + intr.cx
     v = intr.fy * y / zc + intr.cy

@@ -24,7 +24,7 @@ import torch
 
 from recon3d_tpu_torch.config import StereoMatcherConfig, WLSConfig
 from recon3d_tpu_torch.depth.matcher import compute_disparity
-from recon3d_tpu_torch.parallel.mesh import Mesh, frame_sharding, shard_frames
+from recon3d_tpu_torch.parallel.mesh import Mesh, MeshGrid, axis_view, frame_sharding, shard_frames
 from recon3d_tpu_torch.registration.icp import (RegistrationResult, information_matrix,
                                                 registration_icp)
 from recon3d_tpu_torch.registration.ransac import registration_ransac_fpfh
@@ -36,7 +36,7 @@ Clouds = Union[PointCloud, Sequence[PointCloud]]
 def batched_depth(
     lefts: torch.Tensor,
     rights: torch.Tensor,
-    mesh: Mesh,
+    mesh: Union[Mesh, MeshGrid],
     mcfg: StereoMatcherConfig = StereoMatcherConfig(),
     wcfg: WLSConfig = WLSConfig(),
     with_wls: bool = True,
@@ -48,6 +48,7 @@ def batched_depth(
     Returns (disp (B, H, W), valid (B, H, W), the mean valid disparity over
     the whole batch as a 0-d tensor), all on every process, on mesh.device.
     """
+    mesh = axis_view(mesh, axis)
     lefts = torch.as_tensor(lefts, dtype=torch.float32)
     rights = torch.as_tensor(rights, dtype=torch.float32)
     shards = shard_frames(mesh, (lefts, rights), axis)
@@ -143,7 +144,7 @@ def register_pairs_ransac_batched(
 def register_pairs_sharded(
     sources: Clouds,
     targets: Clouds,
-    mesh: Mesh,
+    mesh: Union[Mesh, MeshGrid],
     inits: Optional[torch.Tensor] = None,
     threshold: float = 0.02,
     method: str = "point_to_point",
@@ -153,6 +154,7 @@ def register_pairs_sharded(
     """register_pairs_batched with the pairs split over the mesh's axis: each
     shard registers B / n pairs on mesh.device and every process gets all B
     results (an all_gather), in pair order."""
+    mesh = axis_view(mesh, axis)
     srcs, tgts = _pair_lists(sources, targets)
     B = len(srcs)
     dev = mesh.device

@@ -17,12 +17,17 @@ between shards. A mesh has one of two transports:
   (`batch_isend_irecv`), psum an `all_reduce`, the gather an `all_gather`.
   NCCL carries CUDA tensors, gloo CPU tensors; the device is the caller's.
 
-Meshes are 1-D: both consumers shard one axis ("frame" or "row").
+A consumer shards one axis ("frame" or "row"). An in-process mesh may
+have more axes (`make_mesh(shape=...)`, a `MeshGrid`, as JAX's 2-D
+("frame", "row") layouts); a consumer then works on the 1-D view along its
+axis (`axis_view`): the shards of that axis, each holding what JAX
+replicates over the other axes. A process group's mesh is 1-D.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -115,14 +120,63 @@ class Mesh:
         return [o.to(torch.bool) for o in out] if x.dtype == torch.bool else out
 
 
+@dataclass(frozen=True)
+class MeshGrid:
+    """An in-process mesh of several named axes (shape[i] shards along
+    axis_names[i]) on `device`; `axis(name)` is its 1-D view along one."""
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    device: torch.device
+
+    @property
+    def n(self) -> int:
+        """The mesh's size: the product of its shape."""
+        return math.prod(self.shape)
+
+    def axis(self, name: str) -> Mesh:
+        """The in-process 1-D mesh of the shards along `name`."""
+        if name not in self.axis_names:
+            raise ValueError(f"the mesh's axes are {self.axis_names}, not {name!r}")
+        return Mesh(self.shape[self.axis_names.index(name)], name, self.device)
+
+
+def axis_view(mesh: Union[Mesh, MeshGrid], axis: str) -> Mesh:
+    """The 1-D mesh a consumer sharding `axis` works on: a MeshGrid's view
+    along it, or the 1-D mesh itself (which must be along `axis`)."""
+    if isinstance(mesh, MeshGrid):
+        return mesh.axis(axis)
+    if axis != mesh.axis_name:
+        raise ValueError(f"the mesh's axis is {mesh.axis_name!r}, not {axis!r}")
+    return mesh
+
+
 def make_mesh(n_devices: Optional[int] = None, axis_names: Tuple[str, ...] = ("frame",),
-              device="cuda", group: Optional[dist.ProcessGroup] = None) -> Mesh:
-    """A 1-D mesh of n_devices shards on `device` (the caller's; the card by
-    default). With a process group each of its ranks holds one shard, and
-    n_devices is the group's size; without one, all n_devices shards (1 by
-    default) live in this process."""
+              device="cuda", group: Optional[dist.ProcessGroup] = None,
+              shape: Optional[Sequence[int]] = None) -> Union[Mesh, MeshGrid]:
+    """A mesh of n_devices shards on `device` (the caller's; the card by
+    default). 1-D by default: with a process group each of its ranks holds
+    one shard, and n_devices is the group's size; without one, all
+    n_devices shards (1 by default) live in this process. Pass shape and as
+    many axis_names for an in-process MeshGrid (e.g. (2, 2) over ("frame",
+    "row"))."""
+    if shape is not None and len(shape) != len(axis_names):
+        raise ValueError(f"shape {tuple(shape)} does not name axes {axis_names}")
     if len(axis_names) != 1:
-        raise ValueError(f"only 1-D meshes are supported, got axes {axis_names}")
+        if shape is None:
+            raise ValueError(f"shape required for multi-axis meshes (without it a mesh is "
+                             f"1-D), got axes {axis_names}")
+        if group is not None:
+            raise ValueError("a process group's mesh is 1-D (one rank a shard along one "
+                             "axis); multi-axis meshes are in-process only")
+        grid = MeshGrid(tuple(int(s) for s in shape), tuple(axis_names), torch.device(device))
+        if min(grid.shape) < 1 or n_devices not in (None, grid.n):
+            raise ValueError(f"shape {grid.shape} does not hold {n_devices} shards")
+        return grid
+    if shape is not None:
+        n_devices = shape[0] if n_devices is None else n_devices
+        if int(shape[0]) != n_devices:
+            raise ValueError(f"shape {tuple(shape)} does not hold {n_devices} shards")
     if group is not None:
         size = dist.get_world_size(group)
         if n_devices not in (None, size):
@@ -135,21 +189,22 @@ def make_mesh(n_devices: Optional[int] = None, axis_names: Tuple[str, ...] = ("f
     return Mesh(n, axis_names[0], torch.device(device), group)
 
 
-def frame_sharding(mesh: Mesh, size: int, axis: str = "frame") -> Dict[int, slice]:
-    """The leading-axis range each local shard holds of an axis of `size`
-    (jax's frame_sharding: the leading axis sharded, the rest replicated)."""
-    if axis != mesh.axis_name:
-        raise ValueError(f"the mesh's axis is {mesh.axis_name!r}, not {axis!r}")
+def frame_sharding(mesh: Union[Mesh, MeshGrid], size: int,
+                   axis: str = "frame") -> Dict[int, slice]:
+    """The leading-axis range each local shard along `axis` holds of an axis
+    of `size` (jax's frame_sharding: the leading axis sharded, the rest
+    replicated)."""
+    mesh = axis_view(mesh, axis)
     if size % mesh.n:
         raise ValueError(f"{size} frames do not split over {mesh.n} shards")
     per = size // mesh.n
     return {k: slice(k * per, (k + 1) * per) for k in mesh.local}
 
 
-def shard_frames(mesh: Mesh, tensors: Sequence[torch.Tensor],
+def shard_frames(mesh: Union[Mesh, MeshGrid], tensors: Sequence[torch.Tensor],
                  axis: str = "frame") -> Dict[int, Tuple[torch.Tensor, ...]]:
-    """Each tensor cut along its leading axis (one size for all):
-    {shard: the local shard's parts, on mesh.device}."""
+    """Each tensor cut along its leading axis (one size for all) over the
+    mesh's `axis`: {shard: the local shard's parts, on mesh.device}."""
     sizes = {t.shape[0] for t in tensors}
     if len(sizes) != 1:
         raise ValueError(f"leading axes of different sizes: {sorted(sizes)}")

@@ -33,6 +33,15 @@ from . import _torch_gloo_worker as worker
 GLOO_DEADLINE_S = 180
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """2 torch threads: the suite runs six workers on a shared host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _frames(n, H=48, W=128):
     cam = FakeStereoCamera(width=W, height=H, focal=80.0, baseline=0.05)
     pairs = [cam.render(k)[:2] for k in range(n)]
@@ -133,3 +142,38 @@ def test_in_process_collectives():
     assert [float(t[0]) for t in mesh.all_gather(xs)] == [1.0, 2.0, 3.0]
     mesh.send(xs[0], 0, 1)
     assert mesh.recv(0, 1, (2,)) is xs[0]
+
+
+def test_two_dimensional_mesh_views_are_the_one_dimensional_meshes():
+    """make_mesh(shape=(2, 2)) over ("frame", "row"), as the JAX package's
+    2-D layouts (__graft_entry__.py:77-82): batched_depth over its frame
+    axis and the row-sharded SGM over its row axis, each bitwise its 1-D
+    mesh's result. A process group's mesh stays 1-D."""
+    from recon3d_tpu_torch.depth import sgm_sharded
+    from recon3d_tpu_torch.parallel.mesh import MeshGrid, axis_view
+
+    grid = make_mesh(4, ("frame", "row"), device="cpu", shape=(2, 2))
+    assert isinstance(grid, MeshGrid) and grid.n == 4
+    assert axis_view(grid, "row").n == 2 and axis_view(grid, "frame").axis_name == "frame"
+    ls, rs = _frames(4)
+    mcfg = StereoMatcherConfig(num_disparities=16, block_size=3, speckle_window_size=0)
+    wcfg = WLSConfig(iterations=2)
+    one = batch.batched_depth(torch.tensor(ls), torch.tensor(rs),
+                              make_mesh(2, ("frame",), device="cpu"), mcfg, wcfg, with_wls=False)
+    two = batch.batched_depth(torch.tensor(ls), torch.tensor(rs), grid, mcfg, wcfg,
+                              with_wls=False)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    assert frame_sharding(grid, 4) == {0: slice(0, 2), 1: slice(2, 4)}
+    kw = dict(num_disparities=16, block_size=3, num_directions=4)
+    pair = (torch.tensor(ls[0]), torch.tensor(rs[0]))
+    d1, v1 = sgm_sharded.sgm_disparity_cuda_rowsharded(
+        *pair, make_mesh(2, ("row",), device="cpu"), **kw)
+    d2, v2 = sgm_sharded.sgm_disparity_cuda_rowsharded(*pair, grid, **kw)
+    assert torch.equal(d1, d2) and torch.equal(v1, v2)
+    with pytest.raises(ValueError, match="axes"):
+        axis_view(grid, "pair")
+    with pytest.raises(ValueError, match="does not hold"):
+        make_mesh(3, ("frame", "row"), device="cpu", shape=(2, 2))
+    with pytest.raises(ValueError, match="process group's mesh is 1-D"):
+        make_mesh(None, ("frame", "row"), device="cpu", shape=(2, 2), group=object())
