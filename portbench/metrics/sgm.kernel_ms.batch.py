@@ -1,0 +1,7 @@
+"""sgm.kernel_ms of the batched stereo cells, which report depth_fps.batch: the
+same reader (metrics/sgm.kernel_ms.py)."""
+from pathlib import Path
+
+from portbench.registry import load
+
+read = load(Path(__file__).with_name("sgm.kernel_ms.py")).read
