@@ -1,0 +1,7 @@
+"""wls.span_ms of the batched stereo cells, which report depth_fps.batch: the
+same reader (metrics/wls.span_ms.py)."""
+from pathlib import Path
+
+from portbench.registry import load
+
+read = load(Path(__file__).with_name("wls.span_ms.py")).read

@@ -22,6 +22,7 @@ from recon3d_tpu_torch.depth import sgm_cuda as _sgmc
 from recon3d_tpu_torch.depth import wls as _wls
 from recon3d_tpu_torch.depth import wls_cuda as _wlsc
 from recon3d_tpu_torch.ops import image as im
+from recon3d_tpu_torch.utils.profiling import annotate
 
 
 def uses_kernel_path(backend: str, device: torch.device) -> bool:
@@ -60,19 +61,21 @@ def compute_disparity(
         pre_filter_cap=matcher.pre_filter_cap,
         do_subpixel=matcher.subpixel,
     )
-    if kernel_path:
-        speckle_method = matcher.speckle_method
-        if speckle_method == "auto":
-            speckle_method = "fast"
-        disp, valid = _sgmc.sgm_disparity_cuda(left_gray, right_gray,
-                                               speckle_method=speckle_method, **kw)
-    else:
-        disp, valid = _sgm.sgm_disparity(left_gray, right_gray, **kw)
+    with annotate("depth.sgm"):
+        if kernel_path:
+            speckle_method = matcher.speckle_method
+            if speckle_method == "auto":
+                speckle_method = "fast"
+            disp, valid = _sgmc.sgm_disparity_cuda(left_gray, right_gray,
+                                                   speckle_method=speckle_method, **kw)
+        else:
+            disp, valid = _sgm.sgm_disparity(left_gray, right_gray, **kw)
     if with_wls:
         refine = _wlsc.wls_refine_cuda if kernel_path else _wls.wls_refine
-        disp = refine(disp, valid, left_gray, lam=wls.lam, sigma_color=wls.sigma_color,
-                      iterations=wls.iterations)
-        valid = disp > 0
+        with annotate("depth.wls"):
+            disp = refine(disp, valid, left_gray, lam=wls.lam, sigma_color=wls.sigma_color,
+                          iterations=wls.iterations)
+            valid = disp > 0
     return disp, valid
 
 

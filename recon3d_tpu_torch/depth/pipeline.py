@@ -20,6 +20,7 @@ from recon3d_tpu_torch.config import StereoMatcherConfig, WLSConfig
 from recon3d_tpu_torch.depth import matcher as _matcher
 from recon3d_tpu_torch.ops import image as im
 from recon3d_tpu_torch.ops import warp as _warp
+from recon3d_tpu_torch.utils.profiling import annotate
 
 
 def _to_gray(x: torch.Tensor) -> torch.Tensor:
@@ -29,8 +30,9 @@ def _to_gray(x: torch.Tensor) -> torch.Tensor:
 
 def _finish(lg, rg, Q, mcfg, wcfg, with_wls):
     disp, valid = _matcher.compute_disparity(lg, rg, mcfg, wcfg, with_wls)
-    depth = _matcher.disparity_to_depth(disp, Q)
-    vis = im.colormap_jet(im.normalize_minmax(torch.where(valid, disp, 0.0), 0.0, 1.0))
+    with annotate("depth.output"):
+        depth = _matcher.disparity_to_depth(disp, Q)
+        vis = im.colormap_jet(im.normalize_minmax(torch.where(valid, disp, 0.0), 0.0, 1.0))
     return disp, depth, vis
 
 
@@ -41,8 +43,9 @@ def depth_step(left_raw: torch.Tensor, right_raw: torch.Tensor,
     """One frame: raw pair -> (disparity, depth, jet visualization), with
     the gather remap (cv2.remap -> cvtColor -> SGBM -> WLS -> normalize ->
     colormap)."""
-    lg = im.remap(_to_gray(left_raw), map1x, map1y)
-    rg = im.remap(_to_gray(right_raw), map2x, map2y)
+    with annotate("depth.rectify"):
+        lg = im.remap(_to_gray(left_raw), map1x, map1y)
+        rg = im.remap(_to_gray(right_raw), map2x, map2y)
     return _finish(lg, rg, Q, mcfg, wcfg, with_wls)
 
 
@@ -51,8 +54,9 @@ def depth_step_planned(left_raw: torch.Tensor, right_raw: torch.Tensor,
                        mcfg: StereoMatcherConfig, wcfg: WLSConfig, with_wls: bool = True):
     """depth_step with the two-pass rectification warp: K1 for CUDA
     tensors, the plain warp for CPU tensors."""
-    lg = _warp.remap_two_pass_cuda(_to_gray(left_raw), plan1)
-    rg = _warp.remap_two_pass_cuda(_to_gray(right_raw), plan2)
+    with annotate("depth.rectify"):
+        lg = _warp.remap_two_pass_cuda(_to_gray(left_raw), plan1)
+        rg = _warp.remap_two_pass_cuda(_to_gray(right_raw), plan2)
     return _finish(lg, rg, Q, mcfg, wcfg, with_wls)
 
 
@@ -113,13 +117,14 @@ class DepthPipeline:
         self.wls_config = self.wls_config.adjust(key)
 
     def process(self, left_raw, right_raw):
-        left = torch.as_tensor(left_raw, device=self.device)
-        right = torch.as_tensor(right_raw, device=self.device)
-        if self.plans is not None:
-            return depth_step_planned(left, right, self.plans[0], self.plans[1], self.Q,
-                                      self.matcher_config, self.wls_config, self.with_wls)
-        return depth_step(left, right, *self.maps, self.Q, self.matcher_config,
-                          self.wls_config, self.with_wls)
+        with annotate("depth.process"):
+            left = torch.as_tensor(left_raw, device=self.device)
+            right = torch.as_tensor(right_raw, device=self.device)
+            if self.plans is not None:
+                return depth_step_planned(left, right, self.plans[0], self.plans[1], self.Q,
+                                          self.matcher_config, self.wls_config, self.with_wls)
+            return depth_step(left, right, *self.maps, self.Q, self.matcher_config,
+                              self.wls_config, self.with_wls)
 
     def run(self, camera_left, camera_right, max_frames: Optional[int] = None,
             on_frame=None) -> int:

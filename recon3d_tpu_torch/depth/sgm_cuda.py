@@ -44,6 +44,7 @@ import torch
 from recon3d_tpu_torch import kernels
 from recon3d_tpu_torch.depth import cost as _cost
 from recon3d_tpu_torch.depth import sgm as _sgm
+from recon3d_tpu_torch.utils.profiling import annotate
 
 # Cost of a box window touching an out-of-range sample, in x2 units: above
 # any real cost (<= 2 * 126 * 25 = 6300), small enough that 4-direction
@@ -665,12 +666,13 @@ def sgm_disparity_cuda(
         p2 = 32.0 * block_size * block_size
     H, W = left_gray.shape
     HP, WP, DP = padded_shape(H, W, num_disparities)
-    cost, v1 = cost_fwd_down(left_gray, right_gray, num_disparities, min_disparity,
-                             block_size, pre_filter_cap, p1, p2, HP, WP, DP,
-                             num_directions >= 4)
-    disp_raw, valid = _aggregate_and_finalize_(
-        cost, p1, p2, num_disparities, uniqueness_ratio, disp12_max_diff, do_subpixel, W, v1,
-        "up" if num_directions >= 4 else "down", num_directions == 8)
+    with annotate("sgm.aggregate"):
+        cost, v1 = cost_fwd_down(left_gray, right_gray, num_disparities, min_disparity,
+                                 block_size, pre_filter_cap, p1, p2, HP, WP, DP,
+                                 num_directions >= 4)
+        disp_raw, valid = _aggregate_and_finalize_(
+            cost, p1, p2, num_disparities, uniqueness_ratio, disp12_max_diff, do_subpixel, W,
+            v1, "up" if num_directions >= 4 else "down", num_directions == 8)
     return finish_disparity(disp_raw[:H, :W], valid[:H, :W], num_disparities, min_disparity,
                             speckle_window_size, speckle_range, speckle_method)
 
@@ -685,11 +687,13 @@ def finish_disparity(disp_raw: torch.Tensor, valid: torch.Tensor, num_disparitie
         x = torch.arange(W, device=valid.device)[None, :]
         valid = valid & (x - (min_disparity + torch.round(disp_raw).to(torch.int64)) >= 0)
     if speckle_window_size > 0:
-        if speckle_method == "fast":
-            valid = _sgm.speckle_filter_fast(disp_raw, valid, speckle_range,
-                                             speckle_window_size,
-                                             max_disparity=_ceil_to(num_disparities, 128))
-        else:
-            valid = _sgm.speckle_filter(disp_raw, valid, speckle_range, speckle_window_size)
+        with annotate("sgm.speckle"):
+            if speckle_method == "fast":
+                valid = _sgm.speckle_filter_fast(disp_raw, valid, speckle_range,
+                                                 speckle_window_size,
+                                                 max_disparity=_ceil_to(num_disparities, 128))
+            else:
+                valid = _sgm.speckle_filter(disp_raw, valid, speckle_range,
+                                            speckle_window_size)
     disp_out = torch.where(valid, disp_raw + float(min_disparity), -1.0)
     return disp_out, valid

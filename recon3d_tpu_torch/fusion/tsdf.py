@@ -26,6 +26,7 @@ import torch
 
 from recon3d_tpu_torch.ops.image import fma
 from recon3d_tpu_torch.ops.project_sample import sample_images_at
+from recon3d_tpu_torch.utils.profiling import annotate
 from recon3d_tpu_torch.utils.types import CameraIntrinsics, PointCloud
 
 
@@ -142,9 +143,11 @@ def _frame_contrib(vol: TSDFVolume, depth: torch.Tensor, intr: CameraIntrinsics,
     sequential integrates telescope to (integrate_frames sums them)."""
     extrinsic = torch.as_tensor(extrinsic, dtype=torch.float32, device=vol.tsdf.device)
     H, W = depth.shape
-    z, inb, vc, uc = _pixel_indices(vol, H, W, intr, extrinsic)
+    with annotate("tsdf.project"):
+        z, inb, vc, uc = _pixel_indices(vol, H, W, intr, extrinsic)
     # depth and color at every voxel's pixel: K9 on the card, one launch
-    samp = sample_images_at(vc, uc, _image_stack(depth, color))
+    with annotate("tsdf.sample"):
+        samp = sample_images_at(vc, uc, _image_stack(depth, color))
     d = samp[0]
     valid_d = (d > 1e-4) & (d < depth_trunc) & inb
 
@@ -194,19 +197,20 @@ def integrate(vol: TSDFVolume, depth: torch.Tensor, intr: CameraIntrinsics, extr
     change: tsdf or color changed bitwise, or the weight crossed
     changed_weight_min.
     """
-    e = _check_extrinsic(extrinsic, vol.tsdf.device)
-    use_color = color if vol.color is not None else None
-    n1, w_new, cf = _frame_contrib(vol, depth, intr, e, use_color, depth_trunc)
-    tsdf, w_tot, cnew = _combine(vol, n1, w_new, cf, weight_max)
-    out = dataclasses.replace(vol, tsdf=tsdf, weight=w_tot, color=cnew)
-    if with_changed_z:
-        wm = torch.tensor(changed_weight_min, dtype=torch.float32, device=tsdf.device)
-        changed = (tsdf != vol.tsdf) | ((w_tot >= wm) != (vol.weight >= wm))
-        if vol.color is not None and color is not None:
-            # color-only updates leave tsdf bitwise but stale vertex colors
-            changed = changed | (cnew != vol.color).any(-1)
-        return out, changed.any(1).any(0)
-    return out
+    with annotate("tsdf.integrate"):
+        e = _check_extrinsic(extrinsic, vol.tsdf.device)
+        use_color = color if vol.color is not None else None
+        n1, w_new, cf = _frame_contrib(vol, depth, intr, e, use_color, depth_trunc)
+        tsdf, w_tot, cnew = _combine(vol, n1, w_new, cf, weight_max)
+        out = dataclasses.replace(vol, tsdf=tsdf, weight=w_tot, color=cnew)
+        if with_changed_z:
+            wm = torch.tensor(changed_weight_min, dtype=torch.float32, device=tsdf.device)
+            changed = (tsdf != vol.tsdf) | ((w_tot >= wm) != (vol.weight >= wm))
+            if vol.color is not None and color is not None:
+                # color-only updates leave tsdf bitwise but stale vertex colors
+                changed = changed | (cnew != vol.color).any(-1)
+            return out, changed.any(1).any(0)
+        return out
 
 
 def integrate_donated(vol: TSDFVolume, depth: torch.Tensor, intr: CameraIntrinsics, extrinsic,

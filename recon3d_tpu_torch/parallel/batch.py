@@ -28,6 +28,7 @@ from recon3d_tpu_torch.parallel.mesh import Mesh, MeshGrid, axis_view, frame_sha
 from recon3d_tpu_torch.registration.icp import (RegistrationResult, information_matrix,
                                                 registration_icp)
 from recon3d_tpu_torch.registration.ransac import registration_ransac_fpfh
+from recon3d_tpu_torch.utils.profiling import annotate
 from recon3d_tpu_torch.utils.types import PointCloud
 
 Clouds = Union[PointCloud, Sequence[PointCloud]]
@@ -48,20 +49,21 @@ def batched_depth(
     Returns (disp (B, H, W), valid (B, H, W), the mean valid disparity over
     the whole batch as a 0-d tensor), all on every process, on mesh.device.
     """
-    mesh = axis_view(mesh, axis)
-    lefts = torch.as_tensor(lefts, dtype=torch.float32)
-    rights = torch.as_tensor(rights, dtype=torch.float32)
-    shards = shard_frames(mesh, (lefts, rights), axis)
-    disp, valid, sums, counts = {}, {}, {}, {}
-    for k, (ls, rs) in shards.items():
-        frames = [compute_disparity(a, b, mcfg, wcfg, with_wls) for a, b in zip(ls, rs)]
-        disp[k] = torch.stack([d for d, _ in frames])
-        valid[k] = torch.stack([v for _, v in frames])
-        sums[k] = torch.where(valid[k], disp[k], 0.0).sum()
-        counts[k] = valid[k].to(torch.float32).sum()
-    total, count = mesh.psum(sums), mesh.psum(counts)
-    mean = total / torch.clamp(count, min=1.0)
-    return torch.cat(mesh.all_gather(disp)), torch.cat(mesh.all_gather(valid)), mean
+    with annotate("batch.depth"):
+        mesh = axis_view(mesh, axis)
+        lefts = torch.as_tensor(lefts, dtype=torch.float32)
+        rights = torch.as_tensor(rights, dtype=torch.float32)
+        shards = shard_frames(mesh, (lefts, rights), axis)
+        disp, valid, sums, counts = {}, {}, {}, {}
+        for k, (ls, rs) in shards.items():
+            frames = [compute_disparity(a, b, mcfg, wcfg, with_wls) for a, b in zip(ls, rs)]
+            disp[k] = torch.stack([d for d, _ in frames])
+            valid[k] = torch.stack([v for _, v in frames])
+            sums[k] = torch.where(valid[k], disp[k], 0.0).sum()
+            counts[k] = valid[k].to(torch.float32).sum()
+        total, count = mesh.psum(sums), mesh.psum(counts)
+        mean = total / torch.clamp(count, min=1.0)
+        return torch.cat(mesh.all_gather(disp)), torch.cat(mesh.all_gather(valid)), mean
 
 
 def _map_cloud(pc: PointCloud, fn) -> PointCloud:

@@ -38,6 +38,7 @@ import torch
 from recon3d_tpu_torch.fusion import tsdf as _tsdf
 from recon3d_tpu_torch.parallel.mesh import Mesh, MeshGrid, axis_view, shard_frames
 from recon3d_tpu_torch.registration.odometry import compute_rgbd_odometry
+from recon3d_tpu_torch.utils.profiling import annotate
 from recon3d_tpu_torch.utils.types import CameraIntrinsics, RGBDImage
 
 Frames = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]  # depths, exts, colors
@@ -83,14 +84,16 @@ def _integrate_local(vol: _tsdf.TSDFVolume, parts: Dict[int, Frames], mesh: Mesh
     """The two passes over the local shards' frames; every process returns
     the whole new volume."""
     with_c = vol.color is not None and next(iter(parts.values()))[2] is not None
-    sums = mesh.all_gather({k: _block_weights(vol, f, intr, depth_trunc)
-                            for k, f in parts.items()})
+    with annotate("fusion.weights"):
+        sums = mesh.all_gather({k: _block_weights(vol, f, intr, depth_trunc)
+                                for k, f in parts.items()})
     maps = {}
-    for k, f in parts.items():
-        offset = torch.zeros_like(vol.weight)
-        for before in sums[:k]:
-            offset = offset + before
-        maps[k] = _block_affine(vol, f, intr, depth_trunc, weight_max, vol.weight + offset)
+    with annotate("fusion.affine"):
+        for k, f in parts.items():
+            offset = torch.zeros_like(vol.weight)
+            for before in sums[:k]:
+                offset = offset + before
+            maps[k] = _block_affine(vol, f, intr, depth_trunc, weight_max, vol.weight + offset)
     Ag = mesh.all_gather({k: m[0] for k, m in maps.items()})
     Bng = mesh.all_gather({k: m[1] for k, m in maps.items()})
     Bcg = mesh.all_gather({k: m[2] for k, m in maps.items()}) if with_c else None
@@ -131,14 +134,16 @@ def integrate_frames_exact(
     sharded over `axis_name`, with given (B, 4, 4) camera_from_world
     extrinsics (and (B, H, W, 3) colors). Returns a new volume on
     mesh.device; `vol` is left as it was."""
-    mesh = axis_view(mesh, axis_name)
-    _check_batch(depths.shape[0], mesh)
-    with_c = vol.color is not None and colors is not None
-    exts = torch.as_tensor(exts, dtype=torch.float32)
-    tensors = (torch.as_tensor(depths), exts) + ((torch.as_tensor(colors),) if with_c else ())
-    parts = {k: (p[0], p[1], p[2] if with_c else None)
-             for k, p in shard_frames(mesh, tensors, axis_name).items()}
-    return _integrate_local(vol, parts, mesh, intr, depth_trunc, weight_max)
+    with annotate("fusion.integrate_exact"):
+        mesh = axis_view(mesh, axis_name)
+        _check_batch(depths.shape[0], mesh)
+        with_c = vol.color is not None and colors is not None
+        exts = torch.as_tensor(exts, dtype=torch.float32)
+        tensors = (torch.as_tensor(depths), exts) + ((torch.as_tensor(colors),) if with_c
+                                                     else ())
+        parts = {k: (p[0], p[1], p[2] if with_c else None)
+                 for k, p in shard_frames(mesh, tensors, axis_name).items()}
+        return _integrate_local(vol, parts, mesh, intr, depth_trunc, weight_max)
 
 
 def fused_frames_sharded(

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from recon3d_tpu_torch.depth.matcher import reproject_image_to_3d
+from recon3d_tpu_torch.utils.profiling import annotate
 from recon3d_tpu_torch.utils.types import CameraIntrinsics, PointCloud, transform
 
 # Open3D's RGBD pipeline flips to this camera convention before visualizing
@@ -59,24 +60,25 @@ def backproject_disparity(disparity: torch.Tensor, Q: torch.Tensor,
     (nonzeros only at [0,0] = [1,1] = 1, [0,3], [1,3], [2,3], [3,2], [3,3]),
     so six elementwise ops replace the per-pixel 4x4 transform.
     """
-    Q = Q.to(torch.float32)
-    d = disparity.to(torch.float32)
-    if assume_standard_q:
-        H, W = d.shape
-        y, x = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=d.device),
-                              torch.arange(W, dtype=torch.float32, device=d.device),
-                              indexing="ij")
-        w = Q[3, 2] * d + Q[3, 3]
-        w = torch.where(w.abs() < 1e-12, 1e-12, w)
-        inv = 1.0 / w
-        pts = torch.stack([(x + Q[0, 3]) * inv, (y + Q[1, 3]) * inv, Q[2, 3] * inv],
-                          -1).reshape(-1, 3)
-    else:
-        pts = reproject_image_to_3d(d, Q).reshape(-1, 3)
-    z = pts[:, 2]
-    valid = (d.reshape(-1) > 0) & (z > z_min) & (z < z_max)
-    valid = valid & torch.isfinite(pts).all(dim=1)
-    return PointCloud(points=pts, valid=valid, colors=_colors(color))
+    with annotate("pointcloud.backproject"):
+        Q = Q.to(torch.float32)
+        d = disparity.to(torch.float32)
+        if assume_standard_q:
+            H, W = d.shape
+            y, x = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=d.device),
+                                  torch.arange(W, dtype=torch.float32, device=d.device),
+                                  indexing="ij")
+            w = Q[3, 2] * d + Q[3, 3]
+            w = torch.where(w.abs() < 1e-12, 1e-12, w)
+            inv = 1.0 / w
+            pts = torch.stack([(x + Q[0, 3]) * inv, (y + Q[1, 3]) * inv, Q[2, 3] * inv],
+                              -1).reshape(-1, 3)
+        else:
+            pts = reproject_image_to_3d(d, Q).reshape(-1, 3)
+        z = pts[:, 2]
+        valid = (d.reshape(-1) > 0) & (z > z_min) & (z < z_max)
+        valid = valid & torch.isfinite(pts).all(dim=1)
+        return PointCloud(points=pts, valid=valid, colors=_colors(color))
 
 
 def pointcloud_from_rgbd(color: torch.Tensor, depth: torch.Tensor, intr: CameraIntrinsics,

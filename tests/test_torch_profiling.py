@@ -1,7 +1,8 @@
 """utils/profiling.py and the timing half of utils/logging.py on the CPU: the
 mirror of tests/test_pipelines.py's test_stage_timer_summary, the sync of a
 nest of CPU tensors (nothing to wait for), and trace / annotate /
-torch_trace writing a Chrome trace that holds the annotated region."""
+torch_trace writing a Chrome trace that holds the annotated region
+(tests/test_torch_spans.py holds the span table)."""
 import glob
 import json
 import os
@@ -42,7 +43,14 @@ def _events(path):
         return json.load(f)["traceEvents"]
 
 
-def test_trace_and_annotate_write_a_chrome_trace(tmp_path, capsys):
+def test_trace_and_annotate_write_a_chrome_trace(tmp_path, capsys, monkeypatch):
+    """The range is a record_function range only: annotate makes no NVTX
+    call of its own (emit_nvtx() turns such ranges into NVTX ranges)."""
+    def refuse(*a, **k):
+        raise AssertionError("annotate called NVTX")
+
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", refuse)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop", refuse)
     logdir = str(tmp_path / "trace")
     with profiling.trace(logdir, with_perfetto=True) as prof:
         with profiling.annotate("fuse_region"):
@@ -52,6 +60,7 @@ def test_trace_and_annotate_write_a_chrome_trace(tmp_path, capsys):
     assert any(e.get("name") == "fuse_region" for e in _events(files[0]))
     assert any(k.key == "fuse_region" for k in prof.key_averages())
     assert files[0] in capsys.readouterr().out
+    assert profiling.span_totals()["fuse_region"]["calls"] == 1
 
 
 def test_logging_stage_timer_and_torch_trace(tmp_path):
