@@ -61,14 +61,15 @@ the seconds since the script started):
   fusion      dense TSDF fusion at FusionConfig()'s defaults (256^3, voxel
               0.004, sdf_trunc 0.02, depth_trunc 3, color) of 30
               SyntheticRGBDCamera(640, 480) frames at their true poses, one
-              K9 launch a frame: integrate ms per frame, the 30-frame fuse,
-              peak memory, the volume from K9's plain version (bitwise), and
+              fuse-kernel launch a frame: integrate ms per frame, the
+              30-frame fuse, peak memory, the volume from the plain path
+              (PyTorch's projection and update with K9; bitwise), and
               extract_point_cloud's points against the sphere and the plane;
   mesh        Scanner3D.extract_mesh / save_mesh's steps on the fused volume:
               extract_triangle_mesh (at the JAX package's own budget, 2^19),
               filter_smooth_laplacian x 5, cleanup + compute_vertex_normals,
               the binary PLY write; ms, counts, drops, the mesh of the plain
-              K9 volume (equal) and the vertices against the scene;
+              path's volume (equal) and the vertices against the scene;
   registration  Scanner3D.register_fragments' chain (pipeline/offline.py:
               533-613) at ScannerConfig()'s defaults on 8
               SyntheticRGBDCamera(640, 480) frames, a pair at a time:
@@ -95,15 +96,15 @@ the seconds since the script started):
               10, the live mesher, an auto-fit origin) on 16
               SyntheticRGBDCamera(640, 480) frames (step 0.01): warmup, the
               threaded stream (start(max_frames=16), stop(): fps, every
-              captured frame integrated, no odometry or host failure, K9
-              once a frame), the same frames through _fuse_one (ms a frame,
+              captured frame integrated, no odometry or host failure, the
+              fuse kernel once a frame), the same frames through _fuse_one (ms a frame,
               the last under torch.profiler for the busy share, peak
               memory after frame 5 and 16, extract_mesh_live after frame 1
               and 16), each frame's drift from inv(true_pose(k)) (frames
               1-3 within 1 cm), extract_mesh() against the scene, the live
               mesh against extract_triangle_mesh (equal vertex-key and face
               sets, vertices within 1e-6), then bitwise against the
-              _fuse_one run: the stream, K9's plain version, a checkpoint
+              _fuse_one run: the stream, the plain path, a checkpoint
               at frame 8 resumed with the rest as one backlog through
               _fuse_frames (its stages timed, profile=True); the host
               syncs a step makes
@@ -131,7 +132,7 @@ the seconds since the script started):
               ScannerConfig()).run(8): capture + PNG checkpoints, 8
               preprocessed clouds, 7 sequential and 3 loop pairs through
               register_pairs_ransac_batched, the pose graph, 8 integrates
-              (K9 once each, no other kernel), extract, PLY; ms a stage and
+              (the fuse kernel once each, no other kernel), extract, PLY; ms a stage and
               peak memory. Bars: two pairs (the first sequential, the first
               loop) bitwise their per-pair registration_ransac_fpfh +
               information_matrix; every node's sphere center within 5 mm and
@@ -139,7 +140,7 @@ the seconds since the script started):
               distance to the scene under a voxel (0.004 m); 8 PNG pairs
               replayed by FakeRGBDCamera (colors equal, the raw depth the
               writer's truncation, within 1 / depth_scale);
-              integrate_saved_frames on the first 4 (K9 4) bitwise the same
+              integrate_saved_frames on the first 4 (fuse 4) bitwise the same
               _fuse_one loop. It also gives the pose graph's kept edges on
               the card and the host CPU, and its weights on the host CPU;
   scanner     StreamingScanner(SyntheticRGBDCamera(640, 480, 10 frames),
@@ -164,8 +165,9 @@ the seconds since the script started):
               command's seconds and launches; the PLYs load;
   parallel_fusion  parallel/fusion.py on 4 in-process frame shards: 4 of
               the fusion phase's frames into 256^3 by integrate_frames_exact
-              (K9 twice a frame) against 4 integrate calls (weights exact,
-              tsdf and color within 1e-5) and bitwise its plain-K9 call,
+              (the fuse kernel twice a frame) against 4 integrate calls
+              (weights exact, tsdf and color within 1e-5) and bitwise its
+              plain-path call,
               its peak over the bytes live before it;
               fused_frames_sharded of frames 1-4 against frame 0 against the
               same odometry + integrate chain frame by frame;
@@ -198,8 +200,9 @@ the seconds since the script started):
               stages (the walk, the forward scan) apart and its call
               without the downward path, K6 each axis; K4 (v3 read only,
               checked) and K12 bitwise, each also timed without the LR
-              check (no right view); K9's row also gives its launches on the
-              streaming, offline and replay paths (`streaming_launches`,
+              check (no right view); the fuse kernel's rows (fold and
+              contribution at the fusion phase's shape) also give its
+              launches on the streaming, offline and replay paths (`streaming_launches`,
               `offline_launches`, `offline_replay_launches`), K7's and the
               fused K8's scan_post rows theirs on the scanner path
               (`scanner_launches`); every row its kernel's launches on the
@@ -218,6 +221,7 @@ without the result line; a hung kernel ends the run through the
 faulthandler watchdog. Without a CUDA card, or outside the repository, it
 exits nonzero before any result.
 """
+import contextlib
 import dataclasses
 import faulthandler
 import glob
@@ -317,6 +321,21 @@ def emit(obj):
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+@contextlib.contextmanager
+def plain_fusion():
+    """fusion/tsdf.py's plain version on the card's tensors (the projection
+    and the update as PyTorch operations, K9's sample): the fuse kernel's
+    reference."""
+    from recon3d_tpu_torch.fusion import tsdf
+
+    on_card = tsdf._on_card
+    tsdf._on_card = lambda *a: False
+    try:
+        yield
+    finally:
+        tsdf._on_card = on_card
 
 
 def bench_scene():
@@ -1049,7 +1068,7 @@ def streaming_phase(dev, counted, all_launches):
     """The streaming phase: StreamingFusion at ScannerConfig()'s defaults
     (256^3, keyframe tracking, auto-batching, queue 10, live mesher, an
     auto-fit origin) on 30 SyntheticRGBDCamera(640, 480) frames: the
-    threaded stream, the same frames through _fuse_one, K9's plain version,
+    threaded stream, the same frames through _fuse_one, the plain path,
     a checkpoint / resume with the rest as one backlog, the host CPU's first frames
     and a DepthFilterBank() chain. `counted` runs a path with the launch
     counters at 0 and holds its counts. The bars are checked after the
@@ -1060,8 +1079,6 @@ def streaming_phase(dev, counted, all_launches):
     from recon3d_tpu_torch.camera.fake import SyntheticRGBDCamera
     from recon3d_tpu_torch.config import ScannerConfig
     from recon3d_tpu_torch.depth.filters import DepthFilterBank
-    from recon3d_tpu_torch.fusion import tsdf
-    from recon3d_tpu_torch.ops import project_sample
     from recon3d_tpu_torch.pipeline.streaming import StreamingFusion
     from recon3d_tpu_torch.utils.types import CameraIntrinsics
 
@@ -1120,7 +1137,7 @@ def streaming_phase(dev, counted, all_launches):
         torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
-    stream_s, launches = counted(stream, {"K9": N})
+    stream_s, launches = counted(stream, {"fuse": N})
     part("stream")
     all_launches["streaming"] = launches
     out["stream"] = {"frames_captured": sf.frames_captured,
@@ -1166,11 +1183,11 @@ def streaming_phase(dev, counted, all_launches):
         peak["frame_n"] = torch.cuda.max_memory_allocated(dev)
         return prof, dev_us
 
-    (prof, dev_us), launches = counted(sequential, {"K9": N})
+    (prof, dev_us), launches = counted(sequential, {"fuse": N})
     part("sequential")
     if prof is not None:
-        prof["k9_ms"] = round(sum(t for k, t in dev_us.items() if "project_sample" in k)
-                              / 1e3 / cs["profile_frames"], 4)
+        prof["fuse_ms"] = round(sum(t for k, t in dev_us.items() if "tsdf_fuse" in k)
+                                / 1e3 / cs["profile_frames"], 4)
     out.update(fuse_one_launches=launches,
                fuse_one_ms_median=round(statistics.median(frame_ms[1:]), 3),
                fuse_one_ms=[round(t, 3) for t in frame_ms], profiled=prof)
@@ -1214,17 +1231,13 @@ def streaming_phase(dev, counted, all_launches):
                  f"streaming: the live mesh differs from the full extract: {lvf}"))
     part("live_vs_full")
 
-    # ---- (c) K9 replaced by its plain version: bitwise
-    sampler = tsdf.sample_images_at
-    tsdf.sample_images_at = project_sample.sample_images_plain
-    try:
+    # ---- (c) the plain path (PyTorch's projection and update, K9): bitwise
+    with plain_fusion():
         plain = scanner()
-        counted(lambda: [plain._fuse_one(c, d, fc) for c, d in dev_frames], {})
-    finally:
-        tsdf.sample_images_at = sampler
-    same(plain, seq, "K9's plain version")
+        counted(lambda: [plain._fuse_one(c, d, fc) for c, d in dev_frames], {"K9": N})
+    same(plain, seq, "the plain path")
     del plain
-    part("plain_k9")
+    part("plain_path")
 
     # ---- (d) checkpoint at N/2, restore, the rest as one backlog through
     # _fuse_frames (with profile=True: the step's stages, each ending in a
@@ -1777,10 +1790,10 @@ def scene_distance(p):
 
 def offline_phase(dev, counted, all_launches):
     """The offline phase: Scanner3D(SyntheticRGBDCamera(640, 480, N
-    frames), ScannerConfig()).run(N) on the card (K9 once a frame), its
+    frames), ScannerConfig()).run(N) on the card (the fuse kernel once a frame), its
     batched pairs against per-pair calls, its nodes and mesh against the
     truth, its PNG checkpoints replayed by FakeRGBDCamera and re-integrated
-    by integrate_saved_frames (K9 once a frame) against the same _fuse_one
+    by integrate_saved_frames (the fuse kernel once a frame) against the same _fuse_one
     loop, the pose graph's kept edges on the card and the host CPU and its
     line-process weights on the host CPU. The bars are checked after the
     phase's line."""
@@ -1807,7 +1820,7 @@ def offline_phase(dev, counted, all_launches):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    path, launches = counted(lambda: sc.run(n_frames=N), {"K9": N})
+    path, launches = counted(lambda: sc.run(n_frames=N), {"fuse": N})
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     all_launches["offline"] = launches
@@ -1885,7 +1898,7 @@ def offline_phase(dev, counted, all_launches):
     n_rep = co["replay_frames"]
     t0 = time.perf_counter()
     sf, rep_launches = counted(lambda: integrate_saved_frames(
-        out_dir.name, intr, cfg, resolution=R, max_frames=n_rep, device=dev), {"K9": n_rep})
+        out_dir.name, intr, cfg, resolution=R, max_frames=n_rep, device=dev), {"fuse": n_rep})
     replay_s = time.perf_counter() - t0
     all_launches["offline_replay"] = rep_launches
     loop = StreamingFusion(None, intr, cfg, resolution=R, device=dev)
@@ -2036,9 +2049,9 @@ def cli_phase(dev, counted, all_launches):
     card: depth at the CLI's defaults (960x540, 3 frames) on an NPZ of
     pipeline_rig() scaled to them (K1 x 2, K2, K3, K4, K6 x 6 a frame; the
     first frame's PNG bitwise DepthPipeline.from_npz(...).process on the
-    same pair and rig), fuse at ScannerConfig() (K9 a frame) with
+    same pair and rig), fuse at ScannerConfig() (the fuse kernel a frame) with
     --checkpoint, then --resume for more frames, scan (K7 1 and K8 1) and
-    offline (K9 a frame) on a few synthetic frames, inspect and doctor.
+    offline (the fuse kernel a frame) on a few synthetic frames, inspect and doctor.
     Each command's seconds; every PLY it prints loads."""
     import contextlib
     import io as _io
@@ -2101,10 +2114,10 @@ def cli_phase(dev, counted, all_launches):
     ck = os.path.join(root, "fuse.npz")
     nf, nr = cc["fuse_frames"], cc["resume_frames"]
     run("fuse", ["fuse", "--camera", "synthetic", "--frames", str(nf), "--checkpoint", ck,
-                 "--output_dir", os.path.join(root, "fuse")] + device, {"K9": nf})
+                 "--output_dir", os.path.join(root, "fuse")] + device, {"fuse": nf})
     text = run("resume", ["fuse", "--camera", "synthetic", "--frames", str(nr), "--resume", ck,
                           "--output_dir", os.path.join(root, "resume")] + device,
-               {"K9": nr})
+               {"fuse": nr})
     bars.append((f"resumed at frame {nf}" in text, f"cli resume: {text[-300:]}"))
     meshes = {}
     for tag in ("fuse", "resume"):
@@ -2121,7 +2134,7 @@ def cli_phase(dev, counted, all_launches):
     no = cc["offline_frames"]
     text = run("offline", ["offline", "--camera", "synthetic", "--frames", str(no),
                            "--output_dir", os.path.join(root, "offline")] + device,
-               {"K9": no})
+               {"fuse": no})
     plys = {os.path.basename(p): io.read_ply(p) for p in scan_plys}
     plys["offline"] = io.read_ply(text.split("-> ")[-1].strip())
     bars.append((len(scan_plys) == 3, f"cli scan: wrote {scan_plys}"))
@@ -2149,11 +2162,12 @@ def cli_phase(dev, counted, all_launches):
 def parallel_fusion_phase(dev, counted, all_launches, fframes, fintr):
     """The parallel_fusion phase: parallel/fusion.py over an in-process mesh
     of 4 frame shards on the card, 4 of the fusion phase's 640x480 frames
-    into FusionConfig()'s 256^3 volume. integrate_frames_exact (K9 twice a
-    frame: the weight pass and the affine pass) against 4 sequential
-    integrate calls (weights exact, tsdf and color within 1e-5) and bitwise
-    against the same call on K9's plain version; fused_frames_sharded of
-    frames 1-4 against frame 0 (K9 twice a frame; odometry a frame) against
+    into FusionConfig()'s 256^3 volume. integrate_frames_exact (the fuse
+    kernel twice a frame: the weight pass and the affine pass) against 4
+    sequential integrate calls (weights exact, tsdf and color within 1e-5)
+    and bitwise against the same call on the plain path; fused_frames_sharded
+    of frames 1-4 against frame 0 (the fuse kernel twice a frame; odometry a
+    frame) against
     the same chain run frame by frame (poses equal, weights exact, tsdf
     within 1e-5) and its poses against the truth (frames 1-3 within 1 cm,
     as the streaming phase's; frame 4 is printed: 4 steps from the one
@@ -2163,7 +2177,6 @@ def parallel_fusion_phase(dev, counted, all_launches, fframes, fintr):
 
     from recon3d_tpu_torch.config import FusionConfig
     from recon3d_tpu_torch.fusion import tsdf
-    from recon3d_tpu_torch.ops import project_sample
     from recon3d_tpu_torch.parallel import fusion as pfusion
     from recon3d_tpu_torch.parallel.mesh import make_mesh
     from recon3d_tpu_torch.registration.odometry import compute_rgbd_odometry
@@ -2191,7 +2204,7 @@ def parallel_fusion_phase(dev, counted, all_launches, fframes, fintr):
     torch.cuda.reset_peak_memory_stats(dev)
     live = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
-    out, launches = counted(exact, {"K9": 2 * B})
+    out, launches = counted(exact, {"fuse": 2 * B})
     exact_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated(dev)
     all_launches["parallel_fusion"] = launches
@@ -2207,15 +2220,11 @@ def parallel_fusion_phase(dev, counted, all_launches, fframes, fintr):
            for k in ("tsdf", "color")}
     bars.append((torch.equal(out.weight, seq.weight) and max(err.values()) <= 1e-5,
                  f"parallel_fusion: against 4 integrates {err}"))
-    sampler = tsdf.sample_images_at
-    tsdf.sample_images_at = project_sample.sample_images_plain
-    try:
-        plain, _ = counted(exact, {})
-    finally:
-        tsdf.sample_images_at = sampler
+    with plain_fusion():
+        plain, _ = counted(exact, {"K9": 2 * B})
     bars.append((all(torch.equal(getattr(out, k), getattr(plain, k))
                      for k in ("tsdf", "weight", "color")),
-                 "parallel_fusion: differs from the plain-K9 call"))
+                 "parallel_fusion: differs from the plain-path call"))
     del plain, seq, out
 
     # fused_frames_sharded: frames 1..B tracked against frame 0
@@ -2225,7 +2234,7 @@ def parallel_fusion_phase(dev, counted, all_launches, fframes, fintr):
                                             depth_trunc=fc.depth_trunc)
 
     t0 = time.perf_counter()
-    (fvol, wfc, ok), launches = counted(fused, {"K9": 2 * B})
+    (fvol, wfc, ok), launches = counted(fused, {"fuse": 2 * B})
     fused_ms = (time.perf_counter() - t0) * 1e3
     all_launches["parallel_fused"] = launches
     key = RGBDImage(color=colors[0], depth=depths[0])
@@ -2258,7 +2267,7 @@ def parallel_fusion_phase(dev, counted, all_launches, fframes, fintr):
           "volume_bytes": sum(t.numel() * t.element_size()
                               for t in (vol0.tsdf, vol0.weight, vol0.color)),
           "vs_sequential_max": err, "fused_vs_chain_tsdf_max": f_err,
-          "fused_drift_m": [round(d, 6) for d in drift], "plain_k9_equal": True,
+          "fused_drift_m": [round(d, 6) for d in drift], "plain_path_equal": True,
           "bars_failed": [what for ok_, what in bars if not ok_],
           "phase_s": round(time.perf_counter() - t_phase, 3)})
     del fvol, chain
@@ -2570,7 +2579,7 @@ def main():
     from recon3d_tpu_torch.parallel.mesh import make_mesh
     from recon3d_tpu_torch.fusion import marching, tsdf
     from recon3d_tpu_torch.mesh import ops as mesh_ops
-    from recon3d_tpu_torch.ops import project_sample, project_sample_cuda
+    from recon3d_tpu_torch.ops import project_sample, project_sample_cuda, tsdf_fuse_cuda
     from recon3d_tpu_torch.utils import io as ply_io
 
     dev = torch.device(DEVICE, 0)
@@ -2604,6 +2613,7 @@ def main():
                 "K14 fwd": sgm_cuda.fwd_scan, "K14 down": sgm_cuda.down_accumulate,
                 "K7": grid_knn_cuda.pack_cells, "K8": grid_knn_cuda.core_call,
                 "K9": project_sample_cuda.sample_images_cuda,
+                "fuse": tsdf_fuse_cuda.fuse_voxels_cuda,
                 "K10": sgm_cuda.vscan_carry, "K11": sgm_cuda.diag_carry,
                 "K12": sgm_cuda.wta_finalize, "K13": sgm_sharded.bwd_accumulate_shard}
 
@@ -3179,7 +3189,7 @@ def main():
     torch.cuda.reset_peak_memory_stats(dev)
     frame_ev = []
     t0 = time.perf_counter()
-    vol_k, launches = counted(lambda: fuse(frame_ev), {"K9": cf["frames"]})
+    vol_k, launches = counted(lambda: fuse(frame_ev), {"fuse": cf["frames"]})
     fuse_ms = (time.perf_counter() - t0) * 1e3
     fuse_peak = torch.cuda.max_memory_allocated(dev)
     all_launches["fusion"] = launches
@@ -3189,18 +3199,15 @@ def main():
     prof_frame, dev_us = device_profile(lambda: tsdf.integrate(
         vol_k, d_t, fintr, pose, color=c_t, depth_trunc=fcfg.depth_trunc))
     if prof_frame is not None:
-        prof_frame["k9_ms"] = round(sum(t for k, t in dev_us.items()
-                                        if "project_sample" in k) / 1e3, 4)
-    # the same 30 frames with K9 replaced by its plain version
-    sampler = tsdf.sample_images_at
-    tsdf.sample_images_at = project_sample.sample_images_plain
-    try:
-        vol_q, launches = counted(fuse, {})
-    finally:
-        tsdf.sample_images_at = sampler
+        prof_frame["fuse_ms"] = round(sum(t for k, t in dev_us.items()
+                                          if "tsdf_fuse" in k) / 1e3, 4)
+    # the same 30 frames on the plain path (PyTorch's projection and update, K9)
+    with plain_fusion():
+        vol_q, launches = counted(fuse, {"K9": cf["frames"]})
+    all_launches["fusion_plain"] = launches
     for name in ("tsdf", "weight", "color"):
         check(torch.equal(getattr(vol_k, name), getattr(vol_q, name)),
-              f"fusion: {name} differs from the plain-K9 volume")
+              f"fusion: {name} differs from the plain path's volume")
     pc_f = tsdf.extract_point_cloud(vol_k, capacity=cf["point_capacity"])
     pts_f = pc_f.points[pc_f.valid]
 
@@ -3225,7 +3232,7 @@ def main():
           "integrate_ms_median": round(statistics.median(frame_ms), 4),
           "integrate_ms": [round(t, 4) for t in frame_ms],
           "fuse_ms": round(fuse_ms, 3), "peak_mem_bytes": fuse_peak,
-          "profiled_frame": prof_frame, "plain_k9_equal": True,
+          "profiled_frame": prof_frame, "plain_path_equal": True,
           "surface_points": int(pc_f.valid.sum()), "vs_truth": fusion_truth})
     del pc_f, pts_f
 
@@ -3264,11 +3271,11 @@ def main():
     ply_bytes = os.path.getsize(ply_path)
     prof_extract, _ = device_profile(lambda: marching.extract_triangle_mesh(vol_k))
     prof_chain, _ = device_profile(lambda: mesh_chain(vol_k))
-    mesh_q, _ = mesh_chain(vol_q)  # the plain-K9 volume's mesh
+    mesh_q, _ = mesh_chain(vol_q)  # the plain path's volume's mesh
     for f in dataclasses.fields(mesh_k):
         a, b = getattr(mesh_k, f.name), getattr(mesh_q, f.name)
         check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
-              f"mesh: {f.name} differs from the plain-K9 volume's mesh")
+              f"mesh: {f.name} differs from the plain path's volume's mesh")
     verts_m = mesh_k.vertices[mesh_k.vertex_valid]
     n_tris = int(mesh_k.triangle_valid.sum())
     check(bool(torch.isfinite(verts_m).all()) and n_tris > 10000
@@ -3279,7 +3286,7 @@ def main():
           "triangles": n_tris, "vertices": n_vertices, "ply_bytes": ply_bytes,
           "ms": {k: round(statistics.median(r[i] for r in mesh_ms), 3)
                  for i, k in enumerate(("extract", "smooth", "cleanup_normals", "ply_write"))},
-          "ms_runs": [[round(t, 3) for t in r] for r in mesh_ms], "plain_k9_equal": True,
+          "ms_runs": [[round(t, 3) for t in r] for r in mesh_ms], "plain_path_equal": True,
           "profiled_extract": prof_extract, "profiled_chain": prof_chain,
           "vs_truth": scene_truth(verts_m)})
     ply_dir.cleanup()
@@ -3686,18 +3693,46 @@ def main():
     nbytes = vc.numel() * 8 + s_q.numel() * 4 + imgs.numel() * 4
     check(torch.equal(s_k, s_q), "K9 differs from its plain version")
     row("K9 sample_images_at", "recon3d_tpu_torch/csrc/project_sample.cu",
-        "recon3d_tpu/ops/project_sample.py:131", all_launches["fusion"]["K9"],
+        "recon3d_tpu/ops/project_sample.py:131", all_launches["fusion_plain"]["K9"],
         float((s_k - s_q).abs().max()),
         kernel_times(lambda: project_sample_cuda.sample_images_cuda(vc, uc, imgs), nbytes,
                      KERNEL_RUNS),
         plain_ms(lambda: project_sample.sample_images_plain(vc, uc, imgs)),
         bound_ms(nbytes, 0), run_ms(lambda: imgs[:, vcl, ucl], KERNEL_RUNS),
         library="advanced-index gather imgs[:, vc, uc] (the plain version itself)",
-        shape=[*imgs.shape, fcfg.grid_resolution],
-        streaming_launches=all_launches["streaming"]["K9"],
-        offline_launches=all_launches["offline"]["K9"],
-        offline_replay_launches=all_launches["offline_replay"]["K9"])
-    del vc, uc, vcl, ucl, imgs, s_k, s_q, vol_k
+        shape=[*imgs.shape, fcfg.grid_resolution], path="the plain fusion path only")
+    del vc, uc, vcl, ucl, imgs, s_k, s_q
+
+    # the fuse kernel at the fusion shape, frame 0 into the fused volume:
+    # the fold (integrate) and the contribution (integrate_frames, the
+    # sharded fusion's passes), each against the plain path on the card. The
+    # bytes: the volume read and written whole (fold) or written (contribution)
+    # and the frame read once, portbench/work.py's count.
+    R_f = fcfg.grid_resolution
+    frame_bytes = cf["height"] * cf["width"] * (4 + 3)
+    launches_on = {p: all_launches[p]["fuse"] for p in ("streaming", "offline", "offline_replay")}
+    for mode, fold, vox_bytes in (("fold", True, 40), ("contribution", False, 20)):
+        fn = lambda: tsdf._fuse_voxels(vol_k, d_t, fintr, pose, c_t,  # noqa: E731
+                                       fcfg.depth_trunc, fold=fold)
+        if fold:
+            plain = lambda: tsdf._combine(vol_k, *tsdf._frame_contrib_plain(  # noqa: E731
+                vol_k, d_t, fintr, pose, c_t, fcfg.depth_trunc), 64.0)
+        else:
+            plain = lambda: tsdf._frame_contrib_plain(  # noqa: E731
+                vol_k, d_t, fintr, pose, c_t, fcfg.depth_trunc)
+        out_k, out_q = fn(), plain()
+        check(all(torch.equal(a, b) for a, b in zip(out_k, out_q)),
+              f"the fuse kernel's {mode} differs from the plain path")
+        nbytes = vox_bytes * R_f ** 3 + frame_bytes
+        row(f"fuse tsdf_fuse_kernel {mode}", "recon3d_tpu_torch/csrc/tsdf_fuse.cu",
+            "none (recon3d_tpu/fusion/tsdf.py:_integrate's XLA glue and K9)",
+            all_launches["fusion"]["fuse"] if fold else all_launches["parallel_fusion"]["fuse"],
+            0.0, kernel_times(fn, nbytes, KERNEL_RUNS), plain_ms(plain), bound_ms(nbytes, 0),
+            None, library="none: no single PyTorch call computes it",
+            shape=[cf["height"], cf["width"], R_f], bitwise=True,
+            **({f"{p}_launches": n for p, n in launches_on.items()} if fold else {}))
+        del out_k, out_q
+    del vol_k
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -3,9 +3,13 @@ recon3d_tpu/fusion/tsdf.py).
 
 A dense static grid (256^3 x 5 float32 channels = 335 MB on the card)
 updated voxel-centrically: every voxel projects into the incoming frame,
-samples depth and color at its pixel (K9, ops/project_sample.py) and folds
+samples depth and color at its pixel (ops/project_sample.py) and folds
 the truncated distance into a running weighted average. integrate() is
-O(R^3) whatever the frame size.
+O(R^3) whatever the frame size. On the card one kernel does a voxel's whole
+frame update in one pass (ops/tsdf_fuse_cuda.py): the fold for integrate(),
+the contribution for _frame_contrib; CPU tensors take the plain version
+below (`_frame_contrib_plain`, `_combine`), which it equals bitwise
+(`_on_card` decides).
 
 The arithmetic is the JAX program's, rounded as XLA rounds the jitted
 integrate on the CPU: the voxel centers g * voxel_size + origin and the
@@ -24,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from recon3d_tpu_torch import kernels
 from recon3d_tpu_torch.ops.image import fma
 from recon3d_tpu_torch.ops.project_sample import sample_images_at
 from recon3d_tpu_torch.utils.profiling import annotate
@@ -135,13 +140,47 @@ def _image_stack(depth: torch.Tensor, color: Optional[torch.Tensor]) -> torch.Te
     return imgs.contiguous()
 
 
+def _on_card(vol: TSDFVolume, depth: torch.Tensor, color: Optional[torch.Tensor]) -> bool:
+    """True where the frame goes to the kernel (CUDA tensors), False for the
+    plain version (CPU tensors); raises for mixed devices."""
+    return kernels.use_kernel(vol.tsdf, depth, *(() if color is None else (color,)))
+
+
+def _fuse_voxels(vol: TSDFVolume, depth: torch.Tensor, intr: CameraIntrinsics,
+                 extrinsic: torch.Tensor, color: Optional[torch.Tensor], depth_trunc: float,
+                 fold: bool, weight_max: float = 64.0):
+    """The kernel's launch in the span `tsdf.voxels`: the inputs in the forms
+    it takes (depth float32, color uint8 or float32, all contiguous)."""
+    from recon3d_tpu_torch.ops.tsdf_fuse_cuda import fuse_voxels_cuda
+
+    if color is not None:
+        color = (color if color.dtype == torch.uint8 else color.to(torch.float32)).contiguous()
+    old = (vol.tsdf, vol.weight, vol.color if color is not None else None) if fold else None
+    with annotate("tsdf.voxels"):
+        return fuse_voxels_cuda(vol.origin, vol.voxel_size, vol.sdf_trunc, vol.resolution,
+                                depth.to(torch.float32).contiguous(), color,
+                                extrinsic.contiguous(), intr, depth_trunc, old, weight_max)
+
+
 def _frame_contrib(vol: TSDFVolume, depth: torch.Tensor, intr: CameraIntrinsics,
                    extrinsic: torch.Tensor, color: Optional[torch.Tensor] = None,
                    depth_trunc: float = 3.0):
     """One frame's TSDF contribution in weighted-sum form: (w * tsdf_new,
     w_new, w * color_sample) with w_new in {0, 1}, the summand that
-    sequential integrates telescope to (integrate_frames sums them)."""
+    sequential integrates telescope to (integrate_frames sums them). The
+    kernel's contribution mode on the card, `_frame_contrib_plain` on the
+    CPU."""
     extrinsic = torch.as_tensor(extrinsic, dtype=torch.float32, device=vol.tsdf.device)
+    if _on_card(vol, depth, color):
+        return _fuse_voxels(vol, depth, intr, extrinsic, color, depth_trunc, fold=False)
+    return _frame_contrib_plain(vol, depth, intr, extrinsic, color, depth_trunc)
+
+
+def _frame_contrib_plain(vol: TSDFVolume, depth: torch.Tensor, intr: CameraIntrinsics,
+                         extrinsic: torch.Tensor, color: Optional[torch.Tensor] = None,
+                         depth_trunc: float = 3.0):
+    """_frame_contrib's plain version: the projection, K9's sample and the
+    truncation as PyTorch operations (float32 extrinsic on vol's device)."""
     H, W = depth.shape
     with annotate("tsdf.project"):
         z, inb, vc, uc = _pixel_indices(vol, H, W, intr, extrinsic)
@@ -178,6 +217,19 @@ def _combine(vol: TSDFVolume, n, w_new, cf, weight_max: float):
     return tsdf, w_tot, color
 
 
+def _fold(vol: TSDFVolume, depth: torch.Tensor, intr: CameraIntrinsics,
+          extrinsic: torch.Tensor, color: Optional[torch.Tensor], depth_trunc: float,
+          weight_max: float):
+    """(tsdf, weight, color) of `vol` after one frame: the kernel's fold on
+    the card; on the CPU the plain contribution, then _combine."""
+    if not _on_card(vol, depth, color):
+        n1, w_new, cf = _frame_contrib_plain(vol, depth, intr, extrinsic, color, depth_trunc)
+        return _combine(vol, n1, w_new, cf, weight_max)
+    tsdf, w_tot, cnew = _fuse_voxels(vol, depth, intr, extrinsic, color, depth_trunc,
+                                     fold=True, weight_max=weight_max)
+    return tsdf, w_tot, vol.color if cnew is None else cnew
+
+
 def _check_extrinsic(extrinsic, dev) -> torch.Tensor:
     e = torch.as_tensor(extrinsic, dtype=torch.float32, device=dev)
     if e.shape != (4, 4):
@@ -200,11 +252,11 @@ def integrate(vol: TSDFVolume, depth: torch.Tensor, intr: CameraIntrinsics, extr
     with annotate("tsdf.integrate"):
         e = _check_extrinsic(extrinsic, vol.tsdf.device)
         use_color = color if vol.color is not None else None
-        n1, w_new, cf = _frame_contrib(vol, depth, intr, e, use_color, depth_trunc)
-        tsdf, w_tot, cnew = _combine(vol, n1, w_new, cf, weight_max)
+        tsdf, w_tot, cnew = _fold(vol, depth, intr, e, use_color, depth_trunc, weight_max)
         out = dataclasses.replace(vol, tsdf=tsdf, weight=w_tot, color=cnew)
         if with_changed_z:
-            wm = torch.tensor(changed_weight_min, dtype=torch.float32, device=tsdf.device)
+            # a fill on the device, not a blocking copy from the host
+            wm = torch.full((), changed_weight_min, dtype=torch.float32, device=tsdf.device)
             changed = (tsdf != vol.tsdf) | ((w_tot >= wm) != (vol.weight >= wm))
             if vol.color is not None and color is not None:
                 # color-only updates leave tsdf bitwise but stale vertex colors

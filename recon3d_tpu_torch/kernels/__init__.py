@@ -49,6 +49,7 @@ SIGNATURES = {
     "r3d_vscan_carry": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _I, _P],
     "r3d_diag_carry": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _I, _P],
     "r3d_wta_finalize": [_P] * 4 + [_I] * 8 + [_P],
+    "r3d_tsdf_fuse": [_P] * 12 + [_I] * 5 + [_F] * 6 + [_P],
 }
 
 _lock = threading.Lock()

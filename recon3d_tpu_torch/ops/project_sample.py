@@ -1,8 +1,8 @@
 """Projective image sampling for TSDF integration (twin of
 recon3d_tpu/ops/project_sample.py: `sample_images_at`).
 
-fusion/tsdf.py:_frame_contrib samples the stacked depth + color image at
-every voxel's projected pixel, `images[c, vc, uc]` over an (R, R, R) index
+fusion/tsdf.py:_frame_contrib_plain samples the stacked depth + color image
+at every voxel's projected pixel, `images[c, vc, uc]` over an (R, R, R) index
 volume. On the TPU that gather serialized, so the JAX package selects the
 pixels with a windowed one-hot matmul that reads 0 outside a 64 x 128
 window. On the card it is a plain gather (K9, ops/project_sample_cuda.py),

@@ -20,10 +20,11 @@ only on prefix weight sums. Affine maps compose associatively, so:
           of the shards before it (an exclusive prefix);
   pass 2  each shard folds its frames into one affine map (A, B);
   gather  the maps, composed in shard order: M_{n-1} o ... o M_0.
-Each frame's samples come from fusion/tsdf.py:_frame_contrib, so K9 runs
-twice a frame (once a pass). The result follows the sequential recurrence,
-including voxels whose weight crosses weight_max mid-batch, up to float32
-rounding of the distributed division ((t*a+n)/d vs (a/d)*t + n/d).
+Each frame's summands come from fusion/tsdf.py:_frame_contrib, so on the
+card the fuse kernel's contribution mode runs twice a frame (once a pass).
+The result follows the sequential recurrence, including voxels whose
+weight crosses weight_max mid-batch, up to float32 rounding of the
+distributed division ((t*a+n)/d vs (a/d)*t + n/d).
 
 Unlike the JAX package's program, which donates the volume, both entry
 points leave the caller's volume intact and return a new one.

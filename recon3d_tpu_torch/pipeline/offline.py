@@ -12,8 +12,8 @@ mesh (:357-390) and save it (:487-496).
 Frames stay on the host as numpy (the camera's types); each stage moves
 what it needs to `device`, the card unless the caller asks for the CPU.
 The pairs run through parallel.batch.register_pairs_ransac_batched, the
-pose graph's LM and the TSDF on `device`; the TSDF samples each frame with
-K9 (ops/project_sample.py), one launch a frame. The fragment count is
+pose graph's LM and the TSDF on `device`; on the card the TSDF folds each
+frame in with one launch of the fuse kernel (ops/tsdf_fuse_cuda.py). The fragment count is
 capped by a ring buffer (check83.py:318-330). `timer` holds each stage's
 wall time, each ending in a device sync.
 """

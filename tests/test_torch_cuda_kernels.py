@@ -10,7 +10,11 @@ itself on the CPU, backend 'auto' on the card, K7 (bitwise, overflow
 included) and K8 (bitwise, both variants) on small grids, on hand-made
 tables (holes between occupied slots, empty, full), at C = 1 to 32 with
 edge tiles and at scan_post's sparse G = 128, the grid
-normals on the card against the CPU, K9 on any shape, the fusion and
+normals on the card against the CPU, K9 on any shape, the TSDF fuse
+kernel against fusion/tsdf.py's plain path on the card (bitwise: both modes,
+uint8, float32 and no color, empty and partly fused volumes, voxels behind
+the camera and near z = 0, integrate_frames and the sharded exact
+integrate, R = 256 and R not a multiple of 4), the fusion and
 meshing slice on the card against the CPU (bitwise), K10-K12 on small
 shards (both directions, dead rows below h_real, the public mirrors leaving
 acc as it was), K5 and K11 identical over ten launches, the public
@@ -30,6 +34,7 @@ rounding per operation, so kernel and plain version agree bitwise; the
 disparity bar is the SGM one, valid equal and |delta| < 1e-4.
 """
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -45,7 +50,8 @@ from recon3d_tpu_torch.depth import (DepthPipeline, compute_disparity, sgm_cuda,
 from recon3d_tpu_torch.fusion import marching, tsdf
 from recon3d_tpu_torch.mesh import ops as mesh_ops
 from recon3d_tpu_torch.ops import (grid_knn, grid_knn_cuda, project_sample, project_sample_cuda,
-                                   warp)
+                                   tsdf_fuse_cuda, warp)
+from recon3d_tpu_torch.parallel import fusion as pfusion
 from recon3d_tpu_torch.parallel import batch
 from recon3d_tpu_torch.parallel.mesh import make_mesh
 from recon3d_tpu_torch.pointcloud import normals
@@ -347,7 +353,7 @@ def test_k9_matches_plain(dev, C, H, W, shape):
 
 
 def test_fusion_slice_on_card_matches_cpu(dev):
-    """integrate (K9 on the card) x 3 -> extract_point_cloud and
+    """integrate (the fuse kernel on the card) x 3 -> extract_point_cloud and
     extract_triangle_mesh -> smooth -> cleanup -> normals on the card
     against the same calls on the CPU (plain versions): bitwise, as every
     operation rounds once on both and the sums run in index order."""
@@ -356,14 +362,16 @@ def test_fusion_slice_on_card_matches_cpu(dev):
     intr = CameraIntrinsics(130.0, 130.0, 79.5, 59.5)
     vols = {d: tsdf.make_volume(48, 0.02, 0.06, origin=(-0.48, -0.48, 0.9), device=d)
             for d in ("cpu", dev)}
-    before = project_sample_cuda.sample_images_cuda.launches
+    before = tsdf_fuse_cuda.fuse_voxels_cuda.launches
+    k9_before = project_sample_cuda.sample_images_cuda.launches
     for k in range(3):
         c, depth = cam.grab()
         for d in vols:
             vols[d] = tsdf.integrate(vols[d], torch.tensor(depth, device=d),
                                      intr, torch.tensor(cam.true_pose(k), device=d),
                                      color=torch.tensor(c, device=d))
-    assert project_sample_cuda.sample_images_cuda.launches == before + 3
+    assert tsdf_fuse_cuda.fuse_voxels_cuda.launches == before + 3
+    assert project_sample_cuda.sample_images_cuda.launches == k9_before
     for name in ("tsdf", "weight", "color"):
         assert torch.equal(getattr(vols[dev], name).cpu(), getattr(vols["cpu"], name)), name
     pcs = {d: tsdf.extract_point_cloud(v, capacity=1 << 14) for d, v in vols.items()}
@@ -379,6 +387,176 @@ def test_fusion_slice_on_card_matches_cpu(dev):
               "vertex_normals"):
         assert torch.equal(getattr(meshes[dev], f).cpu(), getattr(meshes["cpu"], f)), f
     assert int(meshes["cpu"].triangle_valid.sum()) > 5000
+
+
+FUSE_INTR = CameraIntrinsics(130.3, 129.7, 79.5, 59.5)  # fx, fy not float32-exact
+
+
+def _fuse_frame(g, dev, kind, H=120, W=160):
+    """A random depth frame (a tenth of it 0, a twentieth beyond depth_trunc
+    2.9) and its color: uint8, float32 or None."""
+    d = g.uniform(0.2, 3.5, (H, W)).astype(np.float32)
+    d[g.random((H, W)) < 0.1] = 0.0
+    d[g.random((H, W)) < 0.05] = 3.2
+    c = {"u8": lambda: g.integers(0, 256, (H, W, 3), dtype=np.uint8),
+         "f32": lambda: g.random((H, W, 3)).astype(np.float32), None: lambda: None}[kind]()
+    return torch.tensor(d, device=dev), None if c is None else torch.tensor(c, device=dev)
+
+
+def _fuse_pose(g, dev, straddle=False):
+    """camera_from_world: a random rotation and a shift that puts the volume
+    in front of the camera or, straddling, across its plane z = 0."""
+    k = torch.tensor(g.uniform(-0.4, 0.4, 3))
+    K = torch.zeros((3, 3), dtype=torch.float64)
+    K[0, 1], K[0, 2], K[1, 2] = -k[2], k[1], -k[0]
+    T = torch.eye(4, dtype=torch.float64)
+    T[:3, :3] = torch.linalg.matrix_exp(K - K.T)
+    T[:3, 3] = torch.tensor(g.uniform(-0.2, 0.2, 3)) + torch.tensor(
+        [0.0, 0.0, -0.35 if straddle else 0.4], dtype=torch.float64)
+    return T.to(torch.float32).to(dev)
+
+
+def _fuse_volume(g, dev, R, fused, weight_max):
+    """An empty volume, or a partly fused one: weights 0 to weight_max, a
+    fifth of them at weight_max, tsdf in [-1, 1], colors in [0, 1]."""
+    vol = tsdf.make_volume(R, 0.05, 0.07, origin=(-0.4, -0.4, 0.0), device=dev)
+    if not fused:
+        return vol
+    w = torch.tensor(g.integers(0, int(weight_max) + 2, (R, R, R)).astype(np.float32))
+    return tsdf.TSDFVolume(
+        tsdf=torch.tensor(g.uniform(-1, 1, (R, R, R)).astype(np.float32), device=dev),
+        weight=torch.clamp(w, max=weight_max).to(dev),
+        color=torch.tensor(g.random((R, R, R, 3)).astype(np.float32), device=dev),
+        origin=vol.origin, voxel_size=vol.voxel_size, sdf_trunc=vol.sdf_trunc)
+
+
+def _plain_path(monkeypatch, fn):
+    """fn() with fusion/tsdf.py's plain version on the card's tensors."""
+    with monkeypatch.context() as m:
+        m.setattr(tsdf, "_on_card", lambda *a: False)
+        return fn()
+
+
+def _assert_fused_equal(a, b, names=("tsdf", "weight", "color")):
+    for name in names:
+        x, y = getattr(a, name), getattr(b, name)
+        assert (x is None) == (y is None) and (x is None or torch.equal(x, y)), name
+
+
+@pytest.mark.parametrize("R", [64, 13])
+@pytest.mark.parametrize("kind", ["u8", "f32", None])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("straddle", [False, True])
+def test_fuse_kernel_integrate_matches_plain(dev, monkeypatch, R, kind, fused, straddle):
+    """integrate through the fuse kernel (fold mode, one launch) against the
+    plain path on the card, bitwise: uint8, float32 and no color; an empty
+    and a partly fused volume with weights at weight_max; volumes in front
+    of the camera and across z = 0 (voxels behind it, |u| saturating near
+    it); depth 0 and beyond depth_trunc; R a multiple of 4 (16-byte loads)
+    and not (one voxel a thread)."""
+    g = np.random.default_rng([R, int(fused), int(straddle), len(str(kind))])
+    vol = _fuse_volume(g, dev, R, fused, 4.0)
+    depth, color = _fuse_frame(g, dev, kind)
+    pose = _fuse_pose(g, dev, straddle)
+    run = lambda: tsdf.integrate(vol, depth, FUSE_INTR, pose, color=color,  # noqa: E731
+                                 depth_trunc=2.9, weight_max=4.0)
+    before = tsdf_fuse_cuda.fuse_voxels_cuda.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert tsdf_fuse_cuda.fuse_voxels_cuda.launches == before + 1
+    plain = _plain_path(monkeypatch, run)
+    assert tsdf_fuse_cuda.fuse_voxels_cuda.launches == before + 1
+    _assert_fused_equal(out, plain)
+    if kind is None:
+        assert out.color is vol.color  # no color frame: the volume's color is kept
+    if not straddle:
+        assert int((out.weight != vol.weight).sum()) > R ** 3 // 200
+
+
+@pytest.mark.parametrize("kind", ["u8", None])
+def test_fuse_kernel_frame_contrib_matches_plain(dev, monkeypatch, kind):
+    """_frame_contrib through the fuse kernel (contribution mode) against
+    the plain path on the card, bitwise, with and without color."""
+    g = np.random.default_rng(7)
+    vol = _fuse_volume(g, dev, 48, False, 64.0)
+    depth, color = _fuse_frame(g, dev, kind)
+    pose = _fuse_pose(g, dev)
+    run = lambda: tsdf._frame_contrib(vol, depth, FUSE_INTR, pose, color, 2.9)  # noqa: E731
+    before = tsdf_fuse_cuda.fuse_voxels_cuda.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert tsdf_fuse_cuda.fuse_voxels_cuda.launches == before + 1
+    plain = _plain_path(monkeypatch, run)
+    for name, a, b in zip(("n", "w", "cf"), out, plain):
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), name
+    assert 0.02 < float(out[1].mean()) < 0.98
+
+
+def test_fuse_kernel_batched_integrates_match_plain(dev, monkeypatch):
+    """integrate_frames (one contribution launch a frame) and
+    integrate_frames_exact on 4 in-process shards (two a frame: the weight
+    pass and the affine pass) against the plain path on the card, bitwise."""
+    g = np.random.default_rng(11)
+    vol = _fuse_volume(g, dev, 36, True, 4.0)
+    frames = [_fuse_frame(g, dev, "u8") for _ in range(4)]
+    depths = torch.stack([d for d, _ in frames])
+    colors = torch.stack([c for _, c in frames])
+    exts = torch.stack([_fuse_pose(g, dev) for _ in range(4)])
+
+    def copy():
+        return dataclasses.replace(vol, tsdf=vol.tsdf.clone(), weight=vol.weight.clone(),
+                                   color=vol.color.clone())
+
+    batched = lambda: tsdf.integrate_frames(copy(), depths[:3], FUSE_INTR,  # noqa: E731
+                                            exts[:3], colors[:3], 2.9, 4.0)
+    mesh = make_mesh(4, ("frame",), device=dev)
+    exact = lambda: pfusion.integrate_frames_exact(vol, depths, exts, FUSE_INTR,  # noqa: E731
+                                                   mesh, colors=colors, depth_trunc=2.9,
+                                                   weight_max=4.0)
+    for run, launches in ((batched, 3), (exact, 8)):
+        before = tsdf_fuse_cuda.fuse_voxels_cuda.launches
+        out = run()
+        torch.cuda.synchronize()
+        assert tsdf_fuse_cuda.fuse_voxels_cuda.launches == before + launches
+        _assert_fused_equal(out, _plain_path(monkeypatch, run))
+        assert bool((out.weight != vol.weight).any())
+
+
+def test_fuse_kernel_at_256_matches_plain(dev, monkeypatch):
+    """FusionConfig()'s 256^3 volume, three SyntheticRGBDCamera(640, 480)
+    frames with uint8 color: integrate with with_changed_z, then
+    integrate_donated, each through the fuse kernel against the plain path
+    on the card, bitwise (the changed-z profile equal)."""
+    from recon3d_tpu_torch.config import FusionConfig
+
+    fc = FusionConfig()
+    cam = SyntheticRGBDCamera(640, 480, n_frames=3)
+    cam.open()
+    intr = CameraIntrinsics(cam.fx, cam.fy, cam.cx, cam.cy)
+    frames = [cam.grab() for _ in range(3)]
+    poses = [torch.tensor(cam.true_pose(k), dtype=torch.float32, device=dev) for k in range(3)]
+
+    def run(donate):
+        vol = tsdf.make_volume(fc.grid_resolution, fc.voxel_size, fc.sdf_trunc,
+                               origin=(-0.512, -0.512, 1.0), device=dev)
+        zs = []
+        for (c, d), pose in zip(frames, poses):
+            args = (vol, torch.tensor(d, device=dev), intr, pose)
+            kw = dict(color=torch.tensor(c, device=dev), depth_trunc=fc.depth_trunc,
+                      with_changed_z=True, changed_weight_min=2.0)
+            vol, z = (tsdf.integrate_donated if donate else tsdf.integrate)(*args, **kw)
+            zs.append(z)
+        return vol, torch.stack(zs)
+
+    for donate in (False, True):
+        before = tsdf_fuse_cuda.fuse_voxels_cuda.launches
+        out, zs = run(donate)
+        torch.cuda.synchronize()
+        assert tsdf_fuse_cuda.fuse_voxels_cuda.launches == before + 3
+        plain, plain_zs = _plain_path(monkeypatch, lambda: run(donate))
+        _assert_fused_equal(out, plain)
+        assert torch.equal(zs, plain_zs)
+        assert bool((out.weight > 0).any()) and bool(zs[-1].any())
 
 
 @pytest.mark.parametrize("H,W,D", [(64, 256, 128), (128, 128, 256), (384, 128, 128),

@@ -35,6 +35,7 @@ from recon3d_tpu_torch.camera.fake import SyntheticRGBDCamera
 from recon3d_tpu_torch.fusion import tsdf as tt
 from recon3d_tpu_torch.ops.project_sample import sample_images_at
 from recon3d_tpu_torch.ops.project_sample_cuda import sample_images_cuda
+from recon3d_tpu_torch.ops.tsdf_fuse_cuda import fuse_voxels_cuda
 from recon3d_tpu_torch.utils import types
 from recon3d_tpu_torch.utils.types import CameraIntrinsics
 
@@ -104,6 +105,63 @@ def test_sampler_checks_its_inputs():
         sample_images_cuda(vc, vc, img)
 
 
+def _fuse_inputs(R=4, H=5, W=6):
+    """Valid CPU inputs of the TSDF fuse kernel's wrapper, fold mode."""
+    vol = tt.make_volume(resolution=R, device="cpu")
+    return dict(origin=vol.origin, voxel_size=vol.voxel_size, sdf_trunc=vol.sdf_trunc,
+                resolution=R, depth=torch.zeros((H, W)),
+                color=torch.zeros((H, W, 3), dtype=torch.uint8), extrinsic=torch.eye(4),
+                intr=CameraIntrinsics(1.0, 1.0, 1.0, 1.0), depth_trunc=3.0,
+                old=(vol.tsdf, vol.weight, vol.color), weight_max=64.0)
+
+
+@pytest.mark.parametrize("change,match", [
+    ({}, "CUDA tensors"),  # valid inputs on the CPU: the kernel has no CPU route
+    ({"old": None}, "CUDA tensors"),  # the contribution mode alike
+    ({"depth": torch.zeros((5, 6), device="meta")}, "different devices"),
+    ({"resolution": 0}, "resolution"),
+    ({"depth": torch.zeros((5, 6), dtype=torch.float64)}, "depth"),
+    ({"depth": torch.zeros((5, 6, 1))}, "depth"),
+    ({"depth": torch.zeros((6, 5)).t()}, "contiguous"),
+    ({"color": torch.zeros((5, 6, 3), dtype=torch.int32)}, "color"),
+    ({"color": torch.zeros((5, 6, 4), dtype=torch.uint8)}, "color"),
+    ({"extrinsic": torch.eye(3)}, "extrinsic"),
+    ({"extrinsic": torch.eye(4, dtype=torch.float64)}, "extrinsic"),
+    ({"origin": torch.zeros(4)}, "origin"),
+    ({"voxel_size": torch.tensor([0.004])}, "voxel_size"),
+    ({"sdf_trunc": torch.tensor(0.02, dtype=torch.float64)}, "sdf_trunc"),
+    ({"old": (torch.zeros((4, 4, 5)), torch.zeros((4, 4, 4)), None)}, "tsdf"),
+    ({"old": (torch.zeros((4, 4, 4)), torch.zeros((4, 4, 4), dtype=torch.float16), None)},
+     "weight"),
+    ({"old": (torch.zeros((4, 4, 4)), torch.zeros((4, 4, 4)), None)}, "volume with color"),
+    ({"old": (torch.zeros((4, 4, 4)), torch.zeros((4, 4, 4)), torch.zeros((4, 4, 4, 4)))},
+     "volume color"),
+])
+def test_fuse_kernel_checks_its_inputs(change, match):
+    """The TSDF fuse kernel's wrapper refuses what the kernel does not take:
+    CPU and meta tensors, wrong dtypes, shapes and layouts, a non-4x4 pose."""
+    before = fuse_voxels_cuda.launches
+    with pytest.raises(ValueError, match=match):
+        fuse_voxels_cuda(**{**_fuse_inputs(), **change})
+    assert fuse_voxels_cuda.launches == before
+
+
+def test_fuse_kernel_launcher_is_registered():
+    """The launcher the wrapper calls is the source's, with as many
+    arguments as SIGNATURES gives it (the stream last)."""
+    import re
+
+    from recon3d_tpu_torch import kernels
+
+    src = (kernels.CSRC / "tsdf_fuse.cu").read_text()
+    decl = re.search(r'extern "C" int (r3d_\w+)\(([^)]*)\)', src)
+    assert decl.group(1) == "r3d_tsdf_fuse" and decl.group(1) in kernels.SIGNATURES
+    params = [p.strip() for p in decl.group(2).split(",")]
+    assert len(params) == len(kernels.SIGNATURES["r3d_tsdf_fuse"])
+    assert params[-1] == "cudaStream_t stream"
+    assert kernels.SIGNATURES["r3d_tsdf_fuse"][-1] is kernels.ctypes.c_void_p
+
+
 @pytest.fixture(scope="module")
 def frames():
     j, t = JSyntheticRGBDCamera(**CAMERA), SyntheticRGBDCamera(**CAMERA)
@@ -142,12 +200,14 @@ def _assert_volume_equal(tv, jv, what):
 def test_integrate_matches_jax_every_frame(frames, with_color):
     ji, ti = _intrinsics()
     jv, tv = _volumes(with_color)
+    before = fuse_voxels_cuda.launches  # CPU tensors: the plain version, no launch
     for k, (c, d, pose) in enumerate(frames):
         jv = jt.integrate(jv, jnp.asarray(d), ji, jnp.asarray(pose),
                           color=jnp.asarray(c) if with_color else None)
         tv = tt.integrate(tv, torch.tensor(d), ti, torch.tensor(pose),
                           color=torch.tensor(c) if with_color else None)
         _assert_volume_equal(tv, jv, f"frame {k}")
+    assert fuse_voxels_cuda.launches == before
     w = tv.weight.numpy()
     assert w.max() == 3.0 and 0.05 < (w > 0).mean() < 0.95
 
